@@ -1,0 +1,110 @@
+"""Building blocks: conv + BN + activation, the DCN module, bilinear up.
+
+Modules take and return NCHW tensors, as ``torch.nn.Conv2d`` does; the
+detector hands them NHWC memory viewed as NCHW (channels-last), so the DCN
+module's move to the kernel's NHWC layout is a view, not a copy. Parameter
+names follow the reference torch model, so that a state dict of the
+reference (``DGDE/model/backbone/dla_dcn.py``, ``DCNv2/DCN/dcn_v2.py``)
+loads as it is.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.dcn import deform_conv2d_clamped
+from ..ops.dcn_cuda import deform_conv2d as deform_conv2d_cuda
+
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # reference dla_dcn.py:18
+
+
+def batch_norm(channels: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+def conv_bn_act(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
+                act: nn.Module = None) -> nn.Sequential:
+    """Conv (no bias) + BN + activation (ReLU unless given) as the
+    reference's ``Sequential``: children ``0`` conv, ``1`` BN, ``2`` act."""
+    return nn.Sequential(
+        nn.Conv2d(cin, cout, kernel_size, stride, (kernel_size - 1) // 2, bias=False),
+        batch_norm(cout),
+        nn.ReLU() if act is None else act,
+    )
+
+
+class DCN(nn.Module):
+    """Modulated deformable conv: an ordinary conv predicts per-tap offsets
+    and mask logits, the deformable conv applies them.
+
+    Reference ``DCN`` (DCNv2/DCN/dcn_v2.py:97-128): ``conv_offset_mask``
+    emits 3K channels; the first 2K are the offsets, read interleaved
+    (dy_t = ch[2t], dx_t = ch[2t+1]), the last K the mask logits. The JAX
+    package reads its offset conv in block layout instead; the weight carry
+    permutes (:func:`dcd_tpu_torch.utils.weights.from_jax_variables`).
+    """
+
+    def __init__(self, cin: int, cout: int, impl: str = "cuda", radius: int = 3):
+        super().__init__()
+        if impl not in ("cuda", "plain"):
+            raise ValueError(f"unknown dcn_impl {impl!r}")
+        self.impl = impl
+        self.radius = radius
+        self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.conv_offset_mask = nn.Conv2d(cin, 27, 3, padding=1)
+        bound = 1.0 / math.sqrt(cin * 9)
+        nn.init.uniform_(self.weight, -bound, bound)
+        nn.init.zeros_(self.conv_offset_mask.weight)
+        nn.init.zeros_(self.conv_offset_mask.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        om = self.conv_offset_mask(x).permute(0, 2, 3, 1)  # NHWC view
+        offset = om[..., :18].float().contiguous()
+        mask = torch.sigmoid(om[..., 18:]).contiguous()
+        x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+        weight = self.weight.permute(2, 3, 1, 0).contiguous()  # (3, 3, Cin, Cout)
+        if self.impl == "cuda":
+            out = deform_conv2d_cuda(x_nhwc, offset, mask, weight, self.bias, self.radius)
+        else:
+            out = deform_conv2d_clamped(x_nhwc, offset, mask, weight, self.bias, self.radius)
+        return out.permute(0, 3, 1, 2)
+
+
+class DeformConv(nn.Module):
+    """DCN + BN + ReLU (reference DeformConv, dla_dcn.py:398-410)."""
+
+    def __init__(self, cin: int, cout: int, impl: str = "cuda", radius: int = 3):
+        super().__init__()
+        self.actf = nn.Sequential(batch_norm(cout), nn.ReLU())
+        self.conv = DCN(cin, cout, impl, radius)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.actf(self.conv(x))
+
+
+def bilinear_kernel_1d(f: int) -> np.ndarray:
+    """1-D factor of the bilinear upsampling kernel of size 2f
+    (reference fill_up_weights, dla_dcn.py:386-395)."""
+    size = f * 2
+    fc = np.ceil(size / 2)
+    c = (2 * fc - 1 - fc % 2) / (2.0 * fc)
+    i = np.arange(size)
+    return 1 - np.abs(i / fc - c)
+
+
+def bilinear_up(channels: int, f: int) -> nn.ConvTranspose2d:
+    """Depthwise transposed conv initialised to bilinear upsampling
+    (reference dla_dcn.py:422-425 + fill_up_weights). The JAX package
+    computes the same operator by its polyphase decomposition."""
+    up = nn.ConvTranspose2d(channels, channels, f * 2, stride=f, padding=f // 2,
+                            groups=channels, bias=False)
+    k1 = torch.from_numpy(bilinear_kernel_1d(f)).float()
+    with torch.no_grad():
+        up.weight.copy_(torch.outer(k1, k1).expand_as(up.weight))
+    return up
