@@ -73,11 +73,13 @@ class Tree(nn.Module):
     def forward(self, x, residual=None, children=None):
         children = [] if children is None else children
         bottom = self.downsample(x) if self.downsample is not None else x
+        # only a leaf uses the residual, but an inner tree computes it as
+        # well, as the reference does: in training its BN's running
+        # statistics move
+        residual = self.project(bottom) if self.project is not None else bottom
         if self.level_root:
             children.append(bottom)
         if self.levels == 1:
-            # only a leaf uses the residual; an inner tree makes its own
-            residual = self.project(bottom) if self.project is not None else bottom
             x1 = self.tree1(x, residual)
             x2 = self.tree2(x1)
             return self.root(x2, x1, *children)

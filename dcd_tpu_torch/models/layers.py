@@ -14,17 +14,47 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dcn import deform_conv2d_clamped
-from ..ops.dcn_cuda import deform_conv2d as deform_conv2d_cuda
+from ..ops.dcn_cuda import DeformConv2dFunction
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # reference dla_dcn.py:18
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class _BiasedRunningVar:
+    """Training-mode BN whose running variance takes the *biased* batch
+    variance, as flax's ``BatchNorm`` (the JAX package's) does; torch's own
+    takes the unbiased one, a factor n/(n-1) apart. The output, the
+    parameters, the buffers and their names are torch's; eval mode is
+    torch's own. ``momentum=None`` keeps torch's cumulative average."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            dims = [0, *range(2, x.dim())]
+            var, mean = torch.var_mean(x, dims, correction=0)
+            self.num_batches_tracked += 1
+            m = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
+            self.running_mean.lerp_(mean, m)
+            self.running_var.lerp_(var, m)
+        return out
+
+
+class BatchNorm2d(_BiasedRunningVar, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_BiasedRunningVar, nn.BatchNorm1d):
+    pass
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 def conv_bn_act(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
@@ -47,6 +77,10 @@ class DCN(nn.Module):
     (dy_t = ch[2t], dx_t = ch[2t+1]), the last K the mask logits. The JAX
     package reads its offset conv in block layout instead; the weight carry
     permutes (:func:`dcd_tpu_torch.utils.weights.from_jax_variables`).
+
+    ``impl="cuda"`` goes through :class:`DeformConv2dFunction` (the CUDA
+    kernels for CUDA tensors, their plain versions for CPU tensors);
+    ``impl="plain"`` is autograd of the plain clamped form.
     """
 
     def __init__(self, cin: int, cout: int, impl: str = "cuda", radius: int = 3):
@@ -70,7 +104,7 @@ class DCN(nn.Module):
         x_nhwc = x.permute(0, 2, 3, 1).contiguous()
         weight = self.weight.permute(2, 3, 1, 0).contiguous()  # (3, 3, Cin, Cout)
         if self.impl == "cuda":
-            out = deform_conv2d_cuda(x_nhwc, offset, mask, weight, self.bias, self.radius)
+            out = DeformConv2dFunction.apply(x_nhwc, offset, mask, weight, self.bias, self.radius)
         else:
             out = deform_conv2d_clamped(x_nhwc, offset, mask, weight, self.bias, self.radius)
         return out.permute(0, 3, 1, 2)

@@ -24,7 +24,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops.nms import nms_hm, select_topk, sigmoid_hm
-from .layers import conv_bn_act
+from .layers import BatchNorm1d, conv_bn_act
 
 
 class Converter_key2channel:
@@ -52,7 +52,7 @@ def edge_fusion(head_conv: int, out_channels: int, kernel_size: int, use_bn: boo
     return nn.Sequential(
         nn.Conv1d(head_conv, head_conv, kernel_size, padding=kernel_size // 2,
                   padding_mode="replicate"),
-        nn.BatchNorm1d(head_conv, eps=1e-5, momentum=0.1) if use_bn else nn.Identity(),
+        BatchNorm1d(head_conv, eps=1e-5, momentum=0.1) if use_bn else nn.Identity(),
         nn.ReLU() if use_relu else nn.Identity(),
         nn.Conv1d(head_conv, out_channels, 1),
     )

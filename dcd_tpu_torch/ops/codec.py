@@ -1,11 +1,12 @@
-"""Geometry decoders used by inference, fp32.
+"""Geometry codec of inference and the training loss, fp32.
 
-The counterpart of the decoders of ``dcd_tpu/ops/codec.py`` that
-:func:`dcd_tpu_torch.engine.infer.postprocess` calls (reference
-``DGDE/model/anno_encoder.py``). Per-object ``calib_P`` (N, 3, 4) arrays
-stand in for per-image calibration loops, and the edge-pair depth solve
-gathers over upper-triangle index pairs instead of building (n, n)
-matrices.
+The counterpart of ``dcd_tpu/ops/codec.py``: the decoders that
+:func:`dcd_tpu_torch.engine.infer.postprocess` and
+:func:`dcd_tpu_torch.engine.loss.compute_losses` call, and the 3D box
+encoder of the loss (reference ``DGDE/model/anno_encoder.py``).
+Per-object ``calib_P`` (N, 3, 4) arrays stand in for per-image calibration
+loops, and the edge-pair depth solve gathers over upper-triangle index
+pairs instead of building (n, n) matrices.
 """
 
 from __future__ import annotations
@@ -124,15 +125,22 @@ def decode_kpts_2d_img(kpts_2d, bbox_points, offset_3d, pad_size, down_ratio: in
     return (kpts_2d + center) * down_ratio - pad_size[:, None, :]
 
 
-def decode_pairs_kpts_depth(kpts_2d_img, kpts_3d, rot_y, calib_P,
-                            clamp: Tuple[float, float] = (2.0, 80.0)) -> torch.Tensor:
+def decode_pairs_kpts_depth(kpts_2d_img, kpts_3d, rot_y, calib_P, training: bool = False,
+                            kpts_2d_mask: Optional[torch.Tensor] = None, pairs_topk: int = 1500,
+                            clamp: Tuple[float, float] = (2.0, 80.0)):
     """Closed-form depth from every keypoint pair, the paper's edge depths
-    (reference anno_encoder.py:326-390, inference form).
+    (reference anno_encoder.py:326-390).
 
     With normalised image rows y_k and object-local 3D keypoints rotated by
     roty, each pair (i, j) gives ``Z_ij = |h_i - h_j| / |y_i - y_j|`` where
-    ``h_k = Y_k + y_k (X_k sin r - Z_k cos r)``. Returns (N, n(n-1)/2)
-    depths, minus ``P[2, 3]``.
+    ``h_k = Y_k + y_k (X_k sin r - Z_k cos r)``, clamped to ``clamp``, minus
+    ``P[2, 3]``.
+
+    Inference form (``training=False``): returns the (N, n(n-1)/2) depths.
+    Training form: keeps the ``pairs_topk`` pairs of largest ``|y_i - y_j|``
+    (:377-382) and returns ``(depths, pair_mask)``, the mask the product of
+    the two keypoints' ``kpts_2d_mask`` (None without one), as the JAX
+    package's ``decode_pairs_kpts_depth`` does.
     """
     n = kpts_2d_img.shape[1]
     fy = calib_P[:, 1, 1:2]
@@ -147,5 +155,47 @@ def decode_pairs_kpts_depth(kpts_2d_img, kpts_3d, rot_y, calib_P,
     j_idx = torch.from_numpy(j_np).to(h.device)
     dH = h[:, i_idx] - h[:, j_idx]
     dV = y_n[:, i_idx] - y_n[:, j_idx]
-    z = torch.abs(dH) / torch.clamp(torch.abs(dV), min=1e-10)
-    return torch.clamp(z, clamp[0], clamp[1]) - b3[:, None]
+    z = torch.clamp(torch.abs(dH) / torch.clamp(torch.abs(dV), min=1e-10), clamp[0], clamp[1])
+    if not training:
+        return z - b3[:, None]
+    pair_mask = None
+    if kpts_2d_mask is not None:
+        m = kpts_2d_mask.to(z.dtype)
+        pair_mask = m[:, i_idx] * m[:, j_idx]
+    good = torch.topk(torch.abs(dV), pairs_topk, dim=-1).indices
+    z = torch.gather(z, 1, good)
+    if pair_mask is not None:
+        pair_mask = torch.gather(pair_mask, 1, good)
+    return z - b3[:, None], pair_mask
+
+
+def rad_to_matrix(rotys: torch.Tensor) -> torch.Tensor:
+    """(N,) yaw -> (N, 3, 3) rotation about camera Y (reference
+    anno_encoder.py:53-71)."""
+    cos, sin = torch.cos(rotys), torch.sin(rotys)
+    zeros, ones = torch.zeros_like(cos), torch.ones_like(cos)
+    return torch.stack([cos, zeros, sin, zeros, ones, zeros, -sin, zeros, cos],
+                       dim=-1).reshape(-1, 3, 3)
+
+
+# corner gather index of encode_box3d (reference anno_encoder.py:119-121)
+_BOX3D_INDEX = np.array([
+    [4, 5, 0, 1, 6, 7, 2, 3],
+    [0, 1, 2, 3, 4, 5, 6, 7],
+    [4, 0, 1, 5, 6, 2, 3, 7],
+])
+
+
+def encode_box3d(rotys: torch.Tensor, dims: torch.Tensor, locs: torch.Tensor) -> torch.Tensor:
+    """(N,) yaw, (N, 3) l/h/w, (N, 3) centres -> (N, 8, 3) corners
+    (reference anno_encoder.py:93-128), fp32."""
+    rotys = rotys.reshape(-1)
+    dims = dims.reshape(-1, 3).float()
+    locs = locs.reshape(-1, 3).float()
+    N = rotys.shape[0]
+    half = dims.reshape(-1, 1).repeat(1, 8) * 0.5  # (3N, 8)
+    half = torch.cat([half[:, :4], -half[:, 4:]], dim=1)
+    index = torch.from_numpy(_BOX3D_INDEX).to(dims.device).repeat(N, 1)
+    corners = torch.gather(half, 1, index).reshape(N, 3, 8)
+    box = torch.matmul(rad_to_matrix(rotys), corners) + locs[:, :, None]
+    return box.transpose(1, 2)

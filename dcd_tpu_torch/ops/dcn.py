@@ -18,7 +18,10 @@ For output pixel p and kernel tap k at (i, j)::
 with zero padding per bilinear corner outside the image. Offsets are
 interleaved per tap, ``off[..., 2k] = dy`` and ``off[..., 2k+1] = dx``.
 
-Both are written as gathers (one ``index_select`` per bilinear corner)
+:func:`dcn_bwd_pom_plain` and :func:`dcn_bwd_x_plain` are the backward of
+the clamped form by autograd: the plain versions of the backward kernels.
+
+Both forms are written as gathers (one ``index_select`` per bilinear corner)
 rather than as the TPU's static window walk, which existed only because
 gathers were slow there. The sample positions are split into an integer
 part and a fraction of the offset itself (``dy - floor(dy)``), as the TPU
@@ -123,3 +126,28 @@ def deform_conv2d_gather(
     """Deformable conv with unbounded offsets, the counterpart of
     ``dcd_tpu.ops.dcn.deform_conv2d``."""
     return _deform_conv2d(x, offset, mask, weight, bias, stride, padding, dilation, None)
+
+
+def _plain_vjp(x, offset, mask, weight, g, radius, wrt):
+    """``torch.autograd.grad`` of :func:`deform_conv2d_clamped` (no bias) at
+    cotangent ``g``, with respect to the arguments named in ``wrt``."""
+    args = {"x": x, "offset": offset, "mask": mask, "weight": weight}
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_(k in wrt) for k, v in args.items()}
+        out = deform_conv2d_clamped(leaves["x"], leaves["offset"], leaves["mask"],
+                                    leaves["weight"], None, radius)
+        return torch.autograd.grad(out, [leaves[k] for k in wrt], g)
+
+
+def dcn_bwd_pom_plain(x, offset, mask, weight, g, radius: float = 3):
+    """(grad_offset, grad_mask, grad_weight) of the clamped deformable conv
+    at cotangent ``g``: the plain version of the K2 kernel, and the same
+    oracle as the JAX package's ``BACKWARD = "xla"`` (autodiff of the
+    clamped form). grad_offset is zero where the clamp is active."""
+    return tuple(_plain_vjp(x, offset, mask, weight, g, radius, ("offset", "mask", "weight")))
+
+
+def dcn_bwd_x_plain(x, offset, mask, weight, g, radius: float = 3):
+    """grad_x of the clamped deformable conv at cotangent ``g``: the plain
+    version of the K3 kernel."""
+    return _plain_vjp(x, offset, mask, weight, g, radius, ("x",))[0]

@@ -1,23 +1,39 @@
-"""Deformable-conv forward through the hand-written CUDA kernel.
+"""Deformable conv through the hand-written CUDA kernels, and its autograd.
 
-The kernel is ``dcd_tpu_torch/csrc/dcn_fwd.cu`` (it replaces the TPU kernel
-``dcd_tpu/ops/dcn_pallas.py::_kernel_cw``); its source note says how it is
-laid out. The wrapper checks its arguments, allocates the output and
-launches on PyTorch's current stream. A tensor on the CPU goes to the plain
-version, :func:`dcd_tpu_torch.ops.dcn.deform_conv2d_clamped`; a CUDA tensor
-launches the kernel or raises.
+The kernels are ``dcd_tpu_torch/csrc/dcn_fwd.cu`` (the forward, replacing the
+TPU kernel ``dcd_tpu/ops/dcn_pallas.py::_kernel_cw``) and
+``dcd_tpu_torch/csrc/dcn_bwd.cu`` (the backward, replacing
+``_bwd_pom_kernel_cw`` and ``_bwd_x_kernel_cw``); their source notes say how
+they are laid out. Each wrapper checks its arguments, allocates outputs and
+scratch, launches on PyTorch's current stream and counts its launches in
+``<wrapper>.launches``. A tensor on the CPU goes to the plain version
+(:mod:`dcd_tpu_torch.ops.dcn`); a CUDA tensor launches the kernel or raises.
+
+:class:`DeformConv2dFunction` is the counterpart of the JAX package's custom
+VJP ``deform_conv2d_pallas``: forward by :func:`deform_conv2d`, backward by
+:func:`dcn_bwd_pom` (grad offset, mask and weight) and :func:`dcn_bwd_x`
+(grad x), the bias gradient the sum of the cotangent.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ..utils import cuda_build
-from .dcn import deform_conv2d_clamped
+from .dcn import deform_conv2d_clamped, dcn_bwd_pom_plain, dcn_bwd_x_plain
 
 _KERNELS = {torch.float32: "dcn_fwd_f32", torch.bfloat16: "dcn_fwd_bf16"}
+
+
+def _check_specs(specs) -> None:
+    dev = specs[0][1].device
+    for name, t, shape, dtype in specs:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
 
 
 def _check(x, offset, mask, weight, bias) -> None:
@@ -32,11 +48,39 @@ def _check(x, offset, mask, weight, bias) -> None:
              ("weight", weight, tuple(weight.shape), x.dtype)]
     if bias is not None:
         specs.append(("bias", bias, (weight.shape[3],), x.dtype))
-    for name, t, shape, dtype in specs:
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {x.device}")
+    _check_specs(specs)
+
+
+def _check_bwd(x, offset, mask, weight, g) -> None:
+    """The backward kernels take fp32 only, the type of the port's training."""
+    for name, t in (("x", x), ("offset", offset), ("mask", mask), ("weight", weight), ("g", g)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 for the backward kernels, got {t.dtype}")
+    if x.dim() != 4 or weight.dim() != 4 or tuple(weight.shape[:3]) != (3, 3, x.shape[3]):
+        raise ValueError(f"x must be (B, H, W, Cin) and weight (3, 3, Cin, Cout), "
+                         f"got {tuple(x.shape)} and {tuple(weight.shape)}")
+    B, H, W, Cin = x.shape
+    Cout = weight.shape[3]
+    _check_specs([("x", x, (B, H, W, Cin), torch.float32),
+                  ("offset", offset, (B, H, W, 18), torch.float32),
+                  ("mask", mask, (B, H, W, 9), torch.float32),
+                  ("weight", weight, (3, 3, Cin, Cout), torch.float32),
+                  ("g", g, (B, H, W, Cout), torch.float32)])
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    fn = getattr(cuda_build.library(), name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+
+
+def _device_of(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+    return x.device.type
 
 
 def deform_conv2d(
@@ -52,26 +96,129 @@ def deform_conv2d(
 
     ``deform_conv2d.launches`` counts the kernel launches.
     """
-    if x.device.type == "cpu":
+    if _device_of(x) == "cpu":
         return deform_conv2d_clamped(x, offset, mask, weight, bias, radius)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
     _check(x, offset, mask, weight, bias)
     B, H, W, Cin = x.shape
     Cout = weight.shape[3]
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
-    fn = getattr(cuda_build.library(), _KERNELS[x.dtype])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(
+    _launch(_KERNELS[x.dtype], x.device,
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            B, H, W, Cin, Cout, int(radius), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{_KERNELS[x.dtype]} launch failed with CUDA error {rc}")
+            B, H, W, Cin, Cout, int(radius))
     deform_conv2d.launches += 1
     return out
 
 
+def _tap_products(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """U (B, H, W, 9, Cin): U_k(p) = W_k g(p), the product both backward
+    kernels contract with; on the card, by ``dcn_tap_products_f32``."""
+    B, H, W, Cout = g.shape
+    Cin = weight.shape[2]
+    u = torch.empty((B, H, W, 9, Cin), dtype=torch.float32, device=g.device)
+    _launch("dcn_tap_products_f32", g.device, g.data_ptr(), weight.data_ptr(), u.data_ptr(),
+            B, H, W, Cin, Cout)
+    return u
+
+
+def dcn_bwd_pom(
+    x: torch.Tensor,  # (B, H, W, Cin) float32
+    offset: torch.Tensor,  # (B, H, W, 18) float32
+    mask: torch.Tensor,  # (B, H, W, 9) float32
+    weight: torch.Tensor,  # (3, 3, Cin, Cout) float32
+    g: torch.Tensor,  # (B, H, W, Cout) float32, the cotangent of the output
+    radius: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K2: (grad_offset, grad_mask, grad_weight, U) of the clamped deformable
+    conv. ``U`` is the tap product the kernel computed on the way, for
+    :func:`dcn_bwd_x` to reuse (None on the CPU).
+
+    ``dcn_bwd_pom.launches`` counts the calls that launched the kernels.
+    """
+    _check_bwd(x, offset, mask, weight, g)
+    if _device_of(x) == "cpu":
+        return (*dcn_bwd_pom_plain(x, offset, mask, weight, g, radius), None)
+    B, H, W, Cin = x.shape
+    Cout = weight.shape[3]
+    lib = cuda_build.library()
+    splits = lib.dcn_bwd_weight_splits(B, H, W, Cin, Cout)
+    u = _tap_products(g, weight)
+    go = torch.empty((B, H, W, 18), dtype=torch.float32, device=x.device)
+    gm = torch.empty((B, H, W, 9), dtype=torch.float32, device=x.device)
+    gw = torch.empty((3, 3, Cin, Cout), dtype=torch.float32, device=x.device)
+    part = torch.empty((splits, 9 * Cin * Cout), dtype=torch.float32, device=x.device)
+    _launch("dcn_bwd_pom_f32", x.device,
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), g.data_ptr(), u.data_ptr(),
+            go.data_ptr(), gm.data_ptr(), gw.data_ptr(), part.data_ptr(),
+            B, H, W, Cin, Cout, int(radius), splits)
+    dcn_bwd_pom.launches += 1
+    return go, gm, gw, u
+
+
+def dcn_bwd_x(
+    x: torch.Tensor,  # (B, H, W, Cin) float32; its shape and device are what count
+    offset: torch.Tensor,  # (B, H, W, 18) float32
+    mask: torch.Tensor,  # (B, H, W, 9) float32
+    weight: torch.Tensor,  # (3, 3, Cin, Cout) float32
+    g: torch.Tensor,  # (B, H, W, Cout) float32
+    radius: int = 3,
+    u: Optional[torch.Tensor] = None,  # (B, H, W, 9, Cin) from dcn_bwd_pom
+) -> torch.Tensor:
+    """K3: grad_x of the clamped deformable conv, a gather over the source
+    pixels each input pixel feeds. ``u``, when given, is the tap product
+    that :func:`dcn_bwd_pom` returned for the same ``g`` and ``weight``;
+    otherwise the wrapper computes it first.
+
+    ``dcn_bwd_x.launches`` counts the calls that launched the kernel.
+    """
+    _check_bwd(x, offset, mask, weight, g)
+    if _device_of(x) == "cpu":
+        return dcn_bwd_x_plain(x, offset, mask, weight, g, radius)
+    B, H, W, Cin = x.shape
+    if u is None:
+        u = _tap_products(g, weight)
+    else:
+        _check_specs([("g", g, tuple(g.shape), torch.float32),
+                      ("u", u, (B, H, W, 9, Cin), torch.float32)])
+    gx = torch.empty((B, H, W, Cin), dtype=torch.float32, device=x.device)
+    _launch("dcn_bwd_x_f32", x.device, offset.data_ptr(), mask.data_ptr(), u.data_ptr(),
+            gx.data_ptr(), B, H, W, Cin, int(radius))
+    dcn_bwd_x.launches += 1
+    return gx
+
+
 deform_conv2d.launches = 0
+dcn_bwd_pom.launches = 0
+dcn_bwd_x.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for fn in (deform_conv2d, dcn_bwd_pom, dcn_bwd_x):
+        fn.launches = 0
+
+
+class DeformConv2dFunction(torch.autograd.Function):
+    """Clamped deformable conv with the kernels' backward.
+
+    ``apply(x, offset, mask, weight, bias, radius)`` with the layouts of
+    :func:`deform_conv2d`; the backward returns grad_x (K3), grad_offset,
+    grad_mask and grad_weight (K2) and grad_bias = the sum of the cotangent,
+    as the JAX package's ``_bwd`` does outside its kernels. CUDA tensors go
+    through the kernels, CPU tensors through the plain versions.
+    """
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias, radius):
+        ctx.radius = radius
+        ctx.has_bias = bias is not None
+        ctx.save_for_backward(x, offset, mask, weight)
+        return deform_conv2d(x, offset, mask, weight, bias, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offset, mask, weight = ctx.saved_tensors
+        g = g.contiguous()
+        go, gm, gw, u = dcn_bwd_pom(x, offset, mask, weight, g, ctx.radius)
+        gx = dcn_bwd_x(x, offset, mask, weight, g, ctx.radius, u)
+        gb = g.sum((0, 1, 2)) if ctx.has_bias else None
+        return gx, go, gm, gw, gb, None

@@ -49,9 +49,11 @@ def select_topk(heat_map: torch.Tensor, K: int = 100) -> Tuple[torch.Tensor, ...
 
 
 def select_point_of_interest(index: torch.Tensor, feature_maps: torch.Tensor) -> torch.Tensor:
-    """Feature rows at flat feature-map indices: index (B, K), feature_maps
-    (B, H, W, C) -> (B, K, C) in fp32."""
+    """Feature rows at feature-map points: index (B, K, 2) as (x, y) points
+    or (B, K) flat indices, feature_maps (B, H, W, C) -> (B, K, C) in fp32."""
     B, H, W, C = feature_maps.shape
+    if index.dim() == 3:
+        index = index[:, :, 1] * W + index[:, :, 0]
     index = index.reshape(B, -1).long()
     flat = feature_maps.reshape(B, H * W, C)
     return torch.gather(flat, 1, index[:, :, None].expand(B, index.shape[1], C)).float()

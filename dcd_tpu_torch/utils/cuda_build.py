@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``dcd_tpu_torch/csrc/*.cu`` into
+One ``nvcc`` process per ``dcd_tpu_torch/csrc/*.cu``, all started together,
+compiles the sources to objects, and one more links them into
 ``build/dcd_tpu_torch/libdcd_kernels.so`` at the root of the checkout, which
 is loaded with :mod:`ctypes`. The sources have a plain C interface and
 include no PyTorch header, so the build takes seconds. It happens at first
@@ -23,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dcd_tpu_torch"
 LIBRARY = BUILD_DIR / "libdcd_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib: Optional[ctypes.CDLL] = None
@@ -60,25 +61,53 @@ def build() -> dict:
     a reader never sees half a file and no lock file is left behind.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = os.getpid()
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(sources(), objs)]
+    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{tag}.tmp")
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        results = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(compiles, procs)]
+        log = "".join(out for _, out, _ in results)
+        for cmd, out, rc in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(link)}\n{log}")
+        os.replace(tmp, LIBRARY)
+    finally:
+        for path in [*objs, tmp]:
+            path.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, LIBRARY)
-    return {"seconds": seconds, "log": log, "command": " ".join(cmd)}
+    commands = [" ".join(cmd) for cmd in compiles + [link]]
+    return {"seconds": seconds, "log": log, "command": "\n  ".join(commands)}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("dcn_fwd_f32", "dcn_fwd_bf16"):
-        fn = getattr(lib, name)
+    signatures = {
         # x, offset, mask, weight, bias, out, B, H, W, Cin, Cout, radius, stream
-        fn.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        "dcn_fwd_f32": [ptr] * 6 + [i32] * 6 + [ptr],
+        "dcn_fwd_bf16": [ptr] * 6 + [i32] * 6 + [ptr],
+        # B, H, W, Cin, Cout
+        "dcn_bwd_weight_splits": [i32] * 5,
+        # g, weight, u, B, H, W, Cin, Cout, stream
+        "dcn_tap_products_f32": [ptr] * 3 + [i32] * 5 + [ptr],
+        # x, offset, mask, g, u, go, gm, gw, part, B, H, W, Cin, Cout, radius, splits, stream
+        "dcn_bwd_pom_f32": [ptr] * 9 + [i32] * 7 + [ptr],
+        # offset, mask, u, gx, B, H, W, Cin, radius, stream
+        "dcn_bwd_x_f32": [ptr] * 4 + [i32] * 5 + [ptr],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = i32
 
 
