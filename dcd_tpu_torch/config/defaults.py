@@ -6,10 +6,11 @@ packages. The port copies it rather than importing it: the port imports
 nothing of ``dcd_tpu``. Left out are the JAX-only knobs (``remat``) and the
 YAML loader, which no path of the port uses yet.
 
-``model.backbone.dcn_impl`` picks the deformable conv of the port:
-``"cuda"`` is the hand-written kernel (its wrapper takes the plain version
-for tensors on the CPU), ``"plain"`` the plain PyTorch clamped version on
-any device.
+``model.backbone.dcn_impl`` takes the JAX package's values with their
+meanings: ``"auto"`` and ``"pallas"`` are the hand-written kernels (their
+wrappers take the plain version for tensors on the CPU), ``"dense"`` the
+plain clamped version, ``"gather"`` the plain unbounded one and ``"plain"``
+an ordinary conv that ignores the offsets (``models/layers.py::DCN``).
 """
 
 from __future__ import annotations
@@ -82,10 +83,12 @@ class BackboneConfig:
     # reference: DGDE/config/defaults.py:114-126
     conv_body: str = "dla34"
     down_ratio: int = 4
-    # deformable-conv implementation: 'cuda' (the hand-written kernel;
-    # plain version on CPU tensors) or 'plain' (the plain PyTorch version);
-    # both clip the offsets to [-dcn_radius, dcn_radius]
-    dcn_impl: str = "cuda"
+    # deformable-conv implementation, the JAX package's values: 'auto' or
+    # 'pallas' (the hand-written kernels; plain version on CPU tensors),
+    # 'dense' (plain, clamped), 'gather' (plain, unbounded), 'plain' (an
+    # ordinary conv); the kernels and 'dense' clip the offsets to
+    # [-dcn_radius, dcn_radius]
+    dcn_impl: str = "auto"
     dcn_radius: int = 3
     # DLA-34 structure (reference: DGDE/model/backbone/dla_dcn.py:361-368)
     levels: Tuple[int, ...] = (1, 1, 1, 2, 2, 1)
@@ -241,7 +244,7 @@ class ModelConfig:
     use_sync_bn: bool = False
     reduce_loss_norm: bool = True
     norm: str = "BN"
-    fp16: bool = False  # bf16 activations; the port runs fp32 only so far
+    fp16: bool = False  # bf16 activations, fp32 parameters (inference; training is fp32)
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
     head: HeadConfig = field(default_factory=HeadConfig)
     batch_weight_factor: int = 18  # average obj num (defaults.py:276)

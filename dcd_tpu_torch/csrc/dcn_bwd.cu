@@ -36,7 +36,10 @@
 // integer offset (every offset at the first step: the offset convs start at
 // zero) ds/ddy is the forward difference x(y0 + 1) - x(y0). Corners outside
 // the image read zero and receive nothing. A clipped offset samples at the
-// clipped position, so it still gives grad_x and grad_mask there.
+// clipped position, so it still gives grad_x and grad_mask there. A tap
+// whose dy or dx is NaN is dropped: it gives and gets nothing (grad_offset,
+// grad_mask, grad_weight and grad_x all 0 from it), as autograd of the plain
+// version gives.
 //
 // What bounds it on this card: operations. The two contractions (U and
 // grad_weight, 2 * 9 * Cin * Cout FLOP per pixel each) dominate; the
@@ -100,6 +103,7 @@ struct Corners {
   int y0, x0;         // top-left corner
   float ly, lx;       // fractions, floor convention
   bool in_y, in_x;    // offset inside [-R, R]: the clip passes its gradient
+  bool drop;          // dy or dx is NaN: the tap reads nothing and gets no gradient
 };
 
 // The sample point of output pixel p = (img, hq, wq), tap k: clamp, floor
@@ -110,10 +114,14 @@ __device__ __forceinline__ Corners corners_of(const float* __restrict__ off, lon
   Corners c;
   const float dyr = off[p * (2 * KT) + 2 * k];
   const float dxr = off[p * (2 * KT) + 2 * k + 1];
-  c.in_y = dyr >= -R && dyr <= R;
-  c.in_x = dxr >= -R && dxr <= R;
-  const float dy = fminf(fmaxf(dyr, -R), R);
-  const float dx = fminf(fmaxf(dxr, -R), R);
+  // a NaN offset drops the tap, as the plain version and the TPU kernel do
+  // (fmaxf would turn NaN into -R); its (dy, dx) become 0 so that the
+  // indices below stay finite, and every corner is marked outside
+  c.drop = isnan(dyr) || isnan(dxr);
+  c.in_y = !c.drop && dyr >= -R && dyr <= R;
+  c.in_x = !c.drop && dxr >= -R && dxr <= R;
+  const float dy = c.drop ? 0.f : fminf(fmaxf(dyr, -R), R);
+  const float dx = c.drop ? 0.f : fminf(fmaxf(dxr, -R), R);
   const float iy = floorf(dy), ix = floorf(dx);
   c.ly = dy - iy;
   c.lx = dx - ix;
@@ -123,7 +131,7 @@ __device__ __forceinline__ Corners corners_of(const float* __restrict__ off, lon
   for (int q = 0; q < 4; ++q) {
     const int yc = c.y0 + (q >> 1);
     const int xc = c.x0 + (q & 1);
-    c.ok[q] = yc >= 0 && yc < H && xc >= 0 && xc < W;
+    c.ok[q] = !c.drop && yc >= 0 && yc < H && xc >= 0 && xc < W;
     c.base[q] = c.ok[q] ? img + (long long)yc * W + xc : 0;
   }
   return c;
@@ -385,7 +393,7 @@ bwd_x_kernel(const float* __restrict__ off, const float* __restrict__ mask,
             p = img + (long long)py * W + px;
             const Corners c = corners_of(off, p, img, py, px, k, H, W, R);
             const int ry = qy - c.y0, rx = qx - c.x0;
-            if ((ry == 0 || ry == 1) && (rx == 0 || rx == 1)) {
+            if (!c.drop && (ry == 0 || ry == 1) && (rx == 0 || rx == 1)) {
               const float wy = ry ? c.ly : 1.f - c.ly;
               const float wx = rx ? c.lx : 1.f - c.lx;
               coef = wy * wx * mask[p * KT + k];

@@ -25,6 +25,7 @@ import numpy as np
 
 from ..config import TYPE_ID_CONVERSION, Config
 from . import heatmap as hm_coder
+from .augmentations import resize_scene
 from .edges import get_edge_indices
 from .kitti_geometry import Calibration, Object3d, approx_proj_center
 
@@ -99,9 +100,8 @@ def encode_targets(
     # calibration (the reference assumes canvas >= image and would fail on
     # negative padding)
     if img.shape[1] > input_w or img.shape[0] > input_h:
-        raise NotImplementedError(
-            f"image {img.shape[1]}x{img.shape[0]} exceeds the {input_w}x{input_h} canvas: "
-            "the resize branch (augmentations.resize_scene) is not ported")
+        scale = min(input_w / img.shape[1], input_h / img.shape[0])
+        img, objs, calib = resize_scene(img, objs, calib, scale)
 
     img_h, img_w = img.shape[:2]
     down = cfg.model.backbone.down_ratio

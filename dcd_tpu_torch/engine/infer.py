@@ -44,9 +44,9 @@ def build_detector(cfg: Config, device: Union[str, torch.device, None] = None,
                    seed: int = 0) -> KeypointDetector:
     """The detector in eval mode on ``device``, with random weights drawn
     from ``torch.Generator`` ``seed`` (load a state dict over them for real
-    weights)."""
-    if cfg.model.fp16:
-        raise NotImplementedError("the port runs fp32 only so far")
+    weights). With ``cfg.model.fp16`` its activations are bf16 and its
+    parameters fp32, as in the JAX package; :func:`postprocess` runs in fp32
+    either way."""
     dev = resolve_device(device)
     model = KeypointDetector(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
@@ -105,7 +105,7 @@ def postprocess(cfg: Config, predictions: Dict[str, torch.Tensor], calib_P: torc
         B = hm.shape[0]
         scores, indexs, clses, ys, xs = select_topk(hm, K=K)
         points = torch.stack([xs, ys], dim=-1)
-        pois = select_point_of_interest(indexs, predictions["reg"])
+        pois = select_point_of_interest(indexs, predictions["reg"]).float()
 
     N = B * K
     pois = pois.reshape(N, -1)

@@ -14,14 +14,16 @@ statistics once per microbatch, and one optimizer update follows, as the
 JAX package's ``lax.scan`` form does.
 
 Not ported yet: ``remat`` (the JAX package's ``jax.checkpoint`` of the
-forward) and loading the ImageNet DLA-34 pretrain; the trainer starts from
-seeded random weights.
+forward), bf16 training (``cfg.model.fp16``) and loading the ImageNet
+DLA-34 pretrain; the trainer starts from seeded random weights.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 from dataclasses import dataclass
-from typing import Dict, Mapping, Union
+from typing import Dict, Iterator, Mapping, Union
 
 import numpy as np
 import torch
@@ -39,15 +41,57 @@ class Trainer:
     model: KeypointDetector
     optimizer: Optimizer
     device: torch.device
+    # run each step in :func:`deterministic_algorithms` (repeatable steps)
+    deterministic: bool = True
+
+
+@contextlib.contextmanager
+def deterministic_algorithms() -> Iterator[None]:
+    """PyTorch's deterministic mode for the body, and the caller's settings
+    back after it: ``torch.use_deterministic_algorithms(True)`` (gathers and
+    scatters whose backward would add with atomics take PyTorch's sorted,
+    ordered forms; ``torch.empty`` fills its memory) and deterministic cuDNN
+    with ``benchmark`` off (the convolution backward adds in a fixed
+    order)."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before[2:]
+
+
+def _step_mode(trainer: Trainer):
+    return deterministic_algorithms() if trainer.deterministic else contextlib.nullcontext()
 
 
 def build_trainer(cfg: Config, device: Union[str, torch.device, None] = None, seed: int = 0,
                   iters_per_epoch: int = 1000) -> Trainer:
     """The detector in train mode on ``device`` (``cuda`` unless the caller
     names another; raises without a card), with weights drawn from ``seed``
-    as :func:`build_detector` draws them, and its optimizer."""
+    as :func:`build_detector` draws them, and its optimizer.
+
+    A train step is made repeatable, as the JAX step is: two trainers built
+    from one seed and given the same batches reach bitwise equal losses and
+    parameters. For that each step runs in :func:`deterministic_algorithms`
+    (``Trainer.deterministic``, on by default), which restores the caller's
+    settings after the step; the DCN kernels add in a fixed order already.
+    PyTorch refuses cuBLAS in that mode unless ``CUBLAS_WORKSPACE_CONFIG``
+    names a fixed workspace, and reads it once, at the process's first
+    cuBLAS call: this sets the one process-wide switch,
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` when it is not set, and a caller
+    that used cuBLAS before sets it first. (On sm_90 it names PyTorch's
+    default workspace, 8 of 4 MiB, so nothing else changes.)
+    """
     if cfg.model.pretrain_path is not None:
         raise NotImplementedError("loading a pretrained trunk is not ported")
+    if cfg.model.fp16:
+        raise NotImplementedError("bf16 training is not ported; fp16 runs inference only")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = resolve_device(device)
     model = build_detector(cfg, dev, seed).train()
     return Trainer(cfg, model, Optimizer(cfg, model, iters_per_epoch), dev)
@@ -79,15 +123,16 @@ def compute_gradients(trainer: Trainer, batch: Mapping) -> Dict[str, torch.Tenso
     model.train()
     model.zero_grad(set_to_none=True)
     sums: Dict[str, torch.Tensor] = {}
-    for i in range(accum):
-        mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-        preds = model(mb["images"], mb["edge_indices"], mb["edge_len"])
-        total, _, logs = compute_losses(cfg, preds, mb)
-        (total / accum).backward()
-        for k, v in {**logs, "total_loss": total}.items():
-            sums[k] = sums.get(k, 0.0) + v.detach()
-    logs = {k: v / accum for k, v in sums.items()}
-    logs["grad_norm"] = global_norm(p.grad for p in model.parameters() if p.grad is not None)
+    with _step_mode(trainer):
+        for i in range(accum):
+            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            preds = model(mb["images"], mb["edge_indices"], mb["edge_len"])
+            total, _, logs = compute_losses(cfg, preds, mb)
+            (total / accum).backward()
+            for k, v in {**logs, "total_loss": total}.items():
+                sums[k] = sums.get(k, 0.0) + v.detach()
+        logs = {k: v / accum for k, v in sums.items()}
+        logs["grad_norm"] = global_norm(p.grad for p in model.parameters() if p.grad is not None)
     return logs
 
 
@@ -95,7 +140,8 @@ def train_step(trainer: Trainer, batch: Mapping) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``batch`` (a collated batch of
     :mod:`dcd_tpu_torch.data.target_encoder`): every loss and log term,
     ``total_loss``, the step's ``lr`` and the ``grad_norm`` before the clip."""
-    logs = compute_gradients(trainer, batch)
-    logs["lr"] = torch.tensor(trainer.optimizer.lr())
-    trainer.optimizer.step()
+    with _step_mode(trainer):
+        logs = compute_gradients(trainer, batch)
+        logs["lr"] = torch.tensor(trainer.optimizer.lr())
+        trainer.optimizer.step()
     return logs

@@ -26,6 +26,9 @@ class KeypointDetector(nn.Module):
         if bb.conv_body != "dla34" or cfg.model.head.predictor != "Base_Predictor":
             raise NotImplementedError(f"{bb.conv_body} / {cfg.model.head.predictor} not ported")
         self.cfg = cfg
+        # activations in bf16 with cfg.model.fp16, parameters fp32 either way
+        # (the JAX package's build_model, dcd_tpu/engine/train.py:47)
+        self.dtype = torch.bfloat16 if cfg.model.fp16 else torch.float32
         self.backbone = DLASeg(bb.levels, bb.channels, bb.down_ratio, bb.last_level,
                                bb.dcn_impl, bb.dcn_radius)
         self.heads = Predictor(cfg, self.backbone.out_channels)
@@ -33,7 +36,8 @@ class KeypointDetector(nn.Module):
     def forward(self, images: torch.Tensor, edge_indices: Optional[torch.Tensor] = None,
                 edge_len: Optional[torch.Tensor] = None,
                 lazy_topk: bool = False) -> Dict[str, torch.Tensor]:
-        """images: (B, H, W, 3) NHWC. The NCHW view of NHWC memory keeps every
-        activation channels-last, the layout the DCN kernel reads."""
-        features = self.backbone(images.permute(0, 3, 1, 2))
+        """images: (B, H, W, 3) NHWC, cast to the model's activation type.
+        The NCHW view of NHWC memory keeps every activation channels-last,
+        the layout the DCN kernel reads."""
+        features = self.backbone(images.to(self.dtype).permute(0, 3, 1, 2))
         return self.heads(features, edge_indices, edge_len, lazy_topk=lazy_topk)

@@ -18,15 +18,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import DeformConv, batch_norm, bilinear_up, conv_bn_act
+from .layers import Conv2d, DeformConv, batch_norm, bilinear_up, conv_bn_act
 
 
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(cin, cout, 3, stride, 1, bias=False)
         self.bn1 = batch_norm(cout)
-        self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(cout, cout, 3, 1, 1, bias=False)
         self.bn2 = batch_norm(cout)
 
     def forward(self, x, residual=None):
@@ -40,7 +40,7 @@ class BasicBlock(nn.Module):
 class Root(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 1, 1, 0, bias=False)
+        self.conv = Conv2d(cin, cout, 1, 1, 0, bias=False)
         self.bn = batch_norm(cout)
 
     def forward(self, *children):
@@ -66,7 +66,7 @@ class Tree(nn.Module):
         self.level_root = level_root
         self.downsample = nn.MaxPool2d(stride, stride) if stride > 1 else None
         self.project = (
-            nn.Sequential(nn.Conv2d(cin, cout, 1, bias=False), batch_norm(cout))
+            nn.Sequential(Conv2d(cin, cout, 1, bias=False), batch_norm(cout))
             if cin != cout else None
         )
 
@@ -171,7 +171,7 @@ class DLASeg(nn.Module):
     ``channels[log2(down_ratio)]`` channels (reference DLASeg, :31-59)."""
 
     def __init__(self, levels: Sequence[int], channels: Sequence[int], down_ratio: int = 4,
-                 last_level: int = 5, dcn_impl: str = "cuda", dcn_radius: int = 3):
+                 last_level: int = 5, dcn_impl: str = "auto", dcn_radius: int = 3):
         super().__init__()
         self.first_level = int(np.log2(down_ratio))
         self.last_level = last_level

@@ -24,7 +24,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops.nms import nms_hm, select_topk, sigmoid_hm
-from .layers import BatchNorm1d, conv_bn_act
+from .layers import BatchNorm1d, Conv1d, Conv2d, conv_bn_act
 
 
 class Converter_key2channel:
@@ -50,11 +50,11 @@ def edge_fusion(head_conv: int, out_channels: int, kernel_size: int, use_bn: boo
     """1-D conv tower over the boundary ring, children ``0`` conv, ``1`` BN,
     ``2`` act, ``3`` conv, as the reference's (:113-125)."""
     return nn.Sequential(
-        nn.Conv1d(head_conv, head_conv, kernel_size, padding=kernel_size // 2,
+        Conv1d(head_conv, head_conv, kernel_size, padding=kernel_size // 2,
                   padding_mode="replicate"),
         BatchNorm1d(head_conv, eps=1e-5, momentum=0.1) if use_bn else nn.Identity(),
         nn.ReLU() if use_relu else nn.Identity(),
-        nn.Conv1d(head_conv, out_channels, 1),
+        Conv1d(head_conv, out_channels, 1),
     )
 
 
@@ -68,13 +68,13 @@ class Predictor(nn.Module):
         classes = cfg.datasets.max_classes_num
         hc = head.num_channel
         self.class_head = conv_bn_act(in_channels, hc, 3, act=_act(head.active_func))
-        self.class_head.append(nn.Conv2d(hc, classes, 1, bias=True))
+        self.class_head.append(Conv2d(hc, classes, 1, bias=True))
         nn.init.constant_(self.class_head[3].bias, -float(np.log(1.0 / head.init_p - 1.0)))
         self.reg_features = nn.ModuleList()
         self.reg_heads = nn.ModuleList()
         for group, chans in zip(head.regression_heads, head.regression_channels):
             self.reg_features.append(conv_bn_act(in_channels, hc, 3, act=_act(head.active_func)))
-            self.reg_heads.append(nn.ModuleList(nn.Conv2d(hc, c, 1, bias=True) for c in chans))
+            self.reg_heads.append(nn.ModuleList(Conv2d(hc, c, 1, bias=True) for c in chans))
         self.offset_group = next(
             gi for gi, g in enumerate(head.regression_heads) if "3d_offset" in g
         )

@@ -26,7 +26,9 @@ rather than as the TPU's static window walk, which existed only because
 gathers were slow there. The sample positions are split into an integer
 part and a fraction of the offset itself (``dy - floor(dy)``), as the TPU
 form does, so that the fraction keeps full precision far from the origin.
-Arithmetic is fp32 whatever the input type; the output takes ``x``'s type.
+Sampling and the product's sums are fp32 whatever the input type; the
+samples are rounded once to the input type before the product, and the
+output takes ``x``'s type.
 """
 
 from __future__ import annotations
@@ -57,6 +59,11 @@ def _deform_conv2d(
     off = offset.float().reshape(B, Ho, Wo, K, 2)
     if radius is not None:
         off = off.clamp(-radius, radius)
+    # a tap whose dy or dx is NaN is dropped, as the JAX forms and the TPU
+    # kernel drop it; its offsets become 0 so that every index and
+    # coefficient stays finite (and so does every gradient)
+    drop = off.isnan().any(-1)  # (B, Ho, Wo, K)
+    off = torch.where(drop[..., None], torch.zeros_like(off), off)
     iy = torch.floor(off[..., 0])
     ix = torch.floor(off[..., 1])
     fy = off[..., 0] - iy  # weight of the lower-right corner row
@@ -81,13 +88,18 @@ def _deform_conv2d(
     ):
         yc = y0 + dy
         xc = x0 + dx
-        valid = (yc >= 0) & (yc < H) & (xc >= 0) & (xc < W)
+        valid = (yc >= 0) & (yc < H) & (xc >= 0) & (xc < W) & ~drop
         idx = img + yc.clamp(0, H - 1) * W + xc.clamp(0, W - 1)
         coef = torch.where(valid, wgt * m, torch.zeros_like(wgt))
         vals = xf.index_select(0, idx.reshape(-1)).view(B, Ho, Wo, K, Cin)
         term = vals * coef[..., None]
         sampled = term if sampled is None else sampled + term
 
+    # the samples are rounded to the input type before the product, as the
+    # JAX forms cast them to the compute type and the TPU kernel rounds its
+    # walk to the weight type before the MXU (a no-op in fp32); the product
+    # sums in fp32
+    sampled = sampled.to(x.dtype).float()
     out = sampled.reshape(B * Ho * Wo, K * Cin) @ weight.float().reshape(K * Cin, Cout)
     if bias is not None:
         out = out + bias.float()

@@ -6,7 +6,8 @@ TPU kernel ``dcd_tpu/ops/dcn_pallas.py::_kernel_cw``) and
 ``_bwd_pom_kernel_cw`` and ``_bwd_x_kernel_cw``); their source notes say how
 they are laid out. Each wrapper checks its arguments, allocates outputs and
 scratch, launches on PyTorch's current stream and counts its launches in
-``<wrapper>.launches``. A tensor on the CPU goes to the plain version
+``<wrapper>.launches`` (the forward's by C entry point, in
+``deform_conv2d.launches_by_kernel``). A tensor on the CPU goes to the plain version
 (:mod:`dcd_tpu_torch.ops.dcn`); a CUDA tensor launches the kernel or raises.
 
 :class:`DeformConv2dFunction` is the counterpart of the JAX package's custom
@@ -49,6 +50,14 @@ def _check(x, offset, mask, weight, bias) -> None:
     if bias is not None:
         specs.append(("bias", bias, (weight.shape[3],), x.dtype))
     _check_specs(specs)
+    # the kernel reads x and W in 16-byte vectors and indexes pixels in int32
+    Cout = weight.shape[3]
+    if Cin % 8 or Cout % 8:
+        raise ValueError(f"Cin and Cout must be multiples of 8, got {Cin} and {Cout}")
+    if x.data_ptr() % 16 or weight.data_ptr() % 16:
+        raise ValueError("x and weight must start on a 16-byte boundary")
+    if B * H * W >= 2 ** 31:
+        raise ValueError(f"B*H*W must be below 2^31, got {B * H * W}")
 
 
 def _check_bwd(x, offset, mask, weight, g) -> None:
@@ -94,7 +103,8 @@ def deform_conv2d(
     """3x3 stride-1 modulated deformable conv with offsets clipped to
     ``[-radius, radius]``, NHWC; fp32 sums for fp32 and bf16 inputs.
 
-    ``deform_conv2d.launches`` counts the kernel launches.
+    ``deform_conv2d.launches_by_kernel`` counts the kernel launches by C
+    entry point (``dcn_fwd_f32``, ``dcn_fwd_bf16``).
     """
     if _device_of(x) == "cpu":
         return deform_conv2d_clamped(x, offset, mask, weight, bias, radius)
@@ -102,11 +112,12 @@ def deform_conv2d(
     B, H, W, Cin = x.shape
     Cout = weight.shape[3]
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
-    _launch(_KERNELS[x.dtype], x.device,
+    name = _KERNELS[x.dtype]
+    _launch(name, x.device,
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             B, H, W, Cin, Cout, int(radius))
-    deform_conv2d.launches += 1
+    deform_conv2d.launches_by_kernel[name] += 1
     return out
 
 
@@ -187,14 +198,13 @@ def dcn_bwd_x(
     return gx
 
 
-deform_conv2d.launches = 0
-dcn_bwd_pom.launches = 0
-dcn_bwd_x.launches = 0
-
-
 def reset_launch_counts() -> None:
-    for fn in (deform_conv2d, dcn_bwd_pom, dcn_bwd_x):
+    for fn in (dcn_bwd_pom, dcn_bwd_x):
         fn.launches = 0
+    deform_conv2d.launches_by_kernel = dict.fromkeys(_KERNELS.values(), 0)
+
+
+reset_launch_counts()
 
 
 class DeformConv2dFunction(torch.autograd.Function):

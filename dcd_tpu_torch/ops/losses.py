@@ -141,11 +141,14 @@ def uncertainty_reg_loss(reg_loss: torch.Tensor, uncertainty: torch.Tensor) -> t
 def multitask_uncertainty_weighting(loss_dict, log_vars, uncertainty_keys):
     """Learned log-variance task weighting (reference
     layers/uncert_wrapper.py:17-56): ``loss * exp(-s_i) + s_i`` for each
-    named term. Returns (new loss dict, weight dict)."""
+    named term. Returns (new loss dict, weight dict). With fewer log
+    variances than keys, the last one serves the rest, as ``jnp`` indexing
+    clamps an index past the end."""
     out = dict(loss_dict)
     weights = {}
     for i, key in enumerate(uncertainty_keys):
+        s = log_vars[min(i, len(log_vars) - 1)]
         if key in out:
-            out[key] = out[key] * torch.exp(-log_vars[i]) + log_vars[i]
-        weights[key.replace("_loss", "") + "_w"] = torch.exp(-log_vars[i])
+            out[key] = out[key] * torch.exp(-s) + s
+        weights[key.replace("_loss", "") + "_w"] = torch.exp(-s)
     return out, weights

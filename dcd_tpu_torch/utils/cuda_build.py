@@ -96,6 +96,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         # x, offset, mask, weight, bias, out, B, H, W, Cin, Cout, radius, stream
         "dcn_fwd_f32": [ptr] * 6 + [i32] * 6 + [ptr],
         "dcn_fwd_bf16": [ptr] * 6 + [i32] * 6 + [ptr],
+        # B, H, W, Cout: the forward's output tile, pixels and channels
+        "dcn_fwd_tile_m": [i32] * 4,
+        "dcn_fwd_tile_n": [i32] * 4,
         # B, H, W, Cin, Cout
         "dcn_bwd_weight_splits": [i32] * 5,
         # g, weight, u, B, H, W, Cin, Cout, stream

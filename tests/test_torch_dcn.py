@@ -123,9 +123,9 @@ def test_offsets_outside_image_sample_zero():
 
 def test_cuda_wrapper_takes_plain_version_on_cpu():
     args = _t(*_inputs(1, 6, 7, 8, 8, 1.5, seed=4))
-    before = dcn_cuda.deform_conv2d.launches
+    before = dict(dcn_cuda.deform_conv2d.launches_by_kernel)
     got = dcn_cuda.deform_conv2d(*args, radius=3)
-    assert dcn_cuda.deform_conv2d.launches == before  # no kernel on the CPU
+    assert dcn_cuda.deform_conv2d.launches_by_kernel == before  # no kernel on the CPU
     np.testing.assert_array_equal(got.numpy(), deform_conv2d_clamped(*args, radius=3).numpy())
 
 
@@ -157,3 +157,109 @@ def test_cuda_wrapper_checks_its_arguments():
             dcn_cuda._check(*args)
     with pytest.raises(ValueError, match="no kernel"):
         dcn_cuda.deform_conv2d(*(t.to("meta") for t in (x, off, mask, w, b)))
+
+
+def _nan_offset_inputs():
+    """The 12x16 image, 8 -> 8 channels, with NaN in tap 0's dy at one
+    interior pixel and in tap 4's dx at another."""
+    x, off, mask, w, b = _inputs(1, 12, 16, 8, 8, 1.0, seed=13)
+    off[0, 5, 7, 0] = np.nan
+    off[0, 8, 3, 2 * 4 + 1] = np.nan
+    return x, off, mask, w, b
+
+
+def test_nan_offset_drops_the_tap():
+    """A NaN offset drops its tap in the dense form and the Pallas kernel;
+    the port's clamped form drops it too, and gives no NaN."""
+    args = _nan_offset_inputs()
+    got = deform_conv2d_clamped(*_t(*args), radius=3).numpy()
+    assert np.isfinite(got).all()
+    dense = np.asarray(jax.jit(lambda *a: deform_conv2d_dense(*a, radius=3))(*args))
+    # every window position walked: the adaptive skip bounds each tile's
+    # walk by its offsets' extremes, which a NaN makes NaN
+    pallas = np.asarray(dcn_pallas.deform_conv2d_pallas(*map(jnp.asarray, args), 3, 4, False))
+    np.testing.assert_allclose(got, dense, rtol=0, atol=TOL)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=TOL)
+    # the tap is gone, not sampled at the clamp's edge
+    x, off, mask, w, b = args
+    edge = off.copy()
+    edge[0, 5, 7, 0] = -3.0
+    at_edge = deform_conv2d_clamped(*_t(x, edge, mask, w, b), radius=3).numpy()
+    assert np.abs(at_edge[0, 5, 7] - got[0, 5, 7]).max() > 1e-2
+
+
+def test_nan_offset_gives_finite_gradients():
+    """Autograd of the plain version (the oracle of the backward kernels)
+    gives no NaN at a dropped tap: nothing flows to or from it."""
+    from dcd_tpu_torch.ops.dcn import dcn_bwd_pom_plain, dcn_bwd_x_plain
+
+    x, off, mask, w, _ = _t(*_nan_offset_inputs())
+    g = torch.from_numpy(np.random.RandomState(1).randn(1, 12, 16, 8).astype(np.float32))
+    go, gm, gw = dcn_bwd_pom_plain(x, off, mask, w, g, 3)
+    gx = dcn_bwd_x_plain(x, off, mask, w, g, 3)
+    for t in (go, gm, gw, gx):
+        assert torch.isfinite(t).all()
+    assert float(go[0, 5, 7, :2].abs().max()) == 0.0 and float(gm[0, 5, 7, 0]) == 0.0
+    assert float(go[0, 8, 3, 8:10].abs().max()) == 0.0 and float(gm[0, 8, 3, 4]) == 0.0
+
+
+@pytest.fixture(scope="module")
+def dcn_modules():
+    """A JAX ``DCN`` module's parameters drawn with numpy and carried into
+    the port's ``DCN`` (kernel transposed, offset conv from flax's block
+    layout to the interleaved one), and an input whose offsets move the
+    samples but stay inside the clamp."""
+    from dcd_tpu_torch.models.layers import DCN
+    from dcd_tpu_torch.utils.weights import offset_conv_perm
+
+    rng = np.random.RandomState(17)
+    Cin, Cout = 8, 8
+    params = {
+        "conv_offset_mask": {"kernel": (rng.randn(3, 3, Cin, 27) * 0.07).astype(np.float32),
+                             "bias": (rng.randn(27) * 0.4).astype(np.float32)},
+        "kernel": (rng.randn(3, 3, Cin, Cout) * 0.2).astype(np.float32),
+        "bias": rng.randn(Cout).astype(np.float32),
+    }
+    x = rng.randn(2, 9, 11, Cin).astype(np.float32)
+    inv = np.argsort(offset_conv_perm(9))
+    state = {
+        "weight": np.transpose(params["kernel"], (3, 2, 0, 1)),
+        "bias": params["bias"],
+        "conv_offset_mask.weight": np.transpose(params["conv_offset_mask"]["kernel"], (3, 2, 0, 1))[inv],
+        "conv_offset_mask.bias": params["conv_offset_mask"]["bias"][inv],
+    }
+
+    def port(impl):
+        m = DCN(Cin, Cout, impl=impl, radius=3)
+        m.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state.items()})
+        with torch.no_grad():
+            om = m.conv_offset_mask(torch.from_numpy(x).permute(0, 3, 1, 2))
+            out = m(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return out.numpy(), float(om[:, :18].abs().max())
+
+    return params, x, port
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas", "dense", "gather", "plain"])
+def test_dcn_impl_values_mean_what_they_mean_in_jax(dcn_modules, impl):
+    """Each ``dcn_impl`` value computes in the port what it computes in the
+    JAX package's DCN module, on the same weights and input. On these inputs
+    no offset reaches the clamp, so the clamped and unbounded forms agree,
+    and "plain" (an ordinary conv) differs from them."""
+    from dcd_tpu.models.layers import DCN as JaxDCN
+
+    params, x, port = dcn_modules
+    got, biggest = port(impl)
+    assert 0.3 < biggest < 3.0
+    want = np.asarray(jax.jit(lambda p, a: JaxDCN(8, impl=impl, window_radius=3).apply(
+        {"params": p}, a))(params, x))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    if impl == "plain":
+        assert np.abs(got - port("dense")[0]).max() > 1e-2
+
+
+def test_dcn_refuses_unknown_impl():
+    from dcd_tpu_torch.models.layers import DCN
+
+    with pytest.raises(ValueError, match="dcn_impl"):
+        DCN(8, 8, impl="cuda")

@@ -155,12 +155,12 @@ def test_backward_wrappers_check_their_arguments(wrapper, case):
 
 
 def test_dcn_module_function_path_matches_plain_autograd():
-    """The DCN module through the Function (``impl="cuda"``, CPU tensors)
-    and through plain autograd (``impl="plain"``) give the same gradients
-    to every parameter and to the input."""
+    """The DCN module through the Function (``impl="auto"``, CPU tensors)
+    and through plain autograd of the clamped form (``impl="dense"``) give
+    the same gradients to every parameter and to the input."""
     torch.manual_seed(0)
-    mods = {impl: DCN(6, 5, impl=impl, radius=3) for impl in ("cuda", "plain")}
-    mods["plain"].load_state_dict(mods["cuda"].state_dict())
+    mods = {impl: DCN(6, 5, impl=impl, radius=3) for impl in ("auto", "dense")}
+    mods["dense"].load_state_dict(mods["auto"].state_dict())
     with torch.no_grad():
         for m in mods.values():  # non-zero offsets and masks
             torch.manual_seed(1)
@@ -172,5 +172,5 @@ def test_dcn_module_function_path_matches_plain_autograd():
         x = x0.clone().requires_grad_()
         (m(x) ** 2).sum().backward()
         grads[impl] = [x.grad] + [p.grad for p in m.parameters()]
-    for a, b in zip(grads["cuda"], grads["plain"]):
+    for a, b in zip(grads["auto"], grads["dense"]):
         assert float((a - b).abs().max()) <= TOL * float(b.abs().max())

@@ -79,9 +79,21 @@ def test_collate_matches_jax():
 
 
 def test_encoder_refuses_an_image_larger_than_the_canvas():
-    img, objs, calib = port_synthetic.make_scene(seed=0, image_size=(1400, 375))
-    with pytest.raises(NotImplementedError, match="resize"):
-        port_encoder.encode_targets(img, objs, calib, torch_run_config())
+    """(The name is the one this test had while the port refused such an
+    image.) An image wider than the canvas is scaled down with its boxes and
+    calibration, as the JAX encoder's resize branch does: the targets match
+    JAX's."""
+    scene_j = jax_synthetic.make_scene(seed=0, image_size=(1400, 375))
+    scene_t = port_synthetic.make_scene(seed=0, image_size=(1400, 375))
+    want = jax_encoder.encode_targets(*scene_j, jax_run_config())
+    got = port_encoder.encode_targets(*scene_t, torch_run_config())
+    assert want.image_size != (1400, 375) and got.image_size == want.image_size
+    assert want.targets["reg_mask"].sum() >= 1
+    for k, w in want.targets.items():
+        g = got.targets[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(got.image, want.image, rtol=0, atol=1e-6)
 
 
 # ---------------------------------------------------------------- compute_losses
@@ -207,6 +219,11 @@ LOSS_CASES = {
     "multitask_weighting": lambda m, rng: m.multitask_uncertainty_weighting(
         dict(zip(("a_loss", "b_loss"), _t(m, np.float32(1.5), np.float32(0.5)))),
         *_t(m, _pair((3,), rng)), ("a_loss", "b_loss", "c_loss")),
+    # fewer log variances than keys: JAX's indexing clamps to the last one
+    "multitask_weighting_short": lambda m, rng: m.multitask_uncertainty_weighting(
+        dict(zip(("a_loss", "b_loss", "c_loss"), _t(m, np.float32(1.5), np.float32(0.5),
+                                                    np.float32(2.0)))),
+        *_t(m, _pair((2,), rng)), ("a_loss", "b_loss", "c_loss", "d_loss")),
 }
 
 

@@ -28,6 +28,7 @@ subtrees, ``adam_onecycle``) to 1e-6, and the schedules against
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +44,8 @@ from dcd_tpu.engine import solver as jax_solver
 from dcd_tpu.engine.train import make_grad_fn
 from dcd_tpu_torch.config import dgde_run_config as torch_run_config
 from dcd_tpu_torch.engine import solver as port_solver
-from dcd_tpu_torch.engine.train import build_trainer, compute_gradients, train_step
+from dcd_tpu_torch.engine.train import (build_trainer, compute_gradients,
+                                         deterministic_algorithms, train_step)
 from dcd_tpu_torch.models.layers import DCN
 from dcd_tpu_torch.ops import dcn_cuda
 from dcd_tpu_torch.utils.weights import from_jax_variables, load_state
@@ -51,6 +53,28 @@ from torch_port_common import numpy_variables, small_configs
 
 REL = 1e-4
 RADIUS = 3
+
+
+def _mode():
+    return (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+
+
+def test_build_trainer_sets_the_deterministic_mode():
+    """The switches that make a train step repeatable on the card: the
+    cuBLAS workspace for the process, and PyTorch's deterministic mode for
+    the steps only, the caller's settings back after each."""
+    _, tcfg = _configs()
+    before = _mode()
+    trainer = build_trainer(tcfg, device="cpu")
+    assert trainer.deterministic and _mode() == before
+    assert os.environ["CUBLAS_WORKSPACE_CONFIG"] in (":4096:8", ":16:8")
+    with deterministic_algorithms():
+        assert _mode() == (True, True, False)
+    assert _mode() == before
+    with pytest.raises(NotImplementedError, match="bf16"):
+        build_trainer(dataclasses.replace(tcfg, model=dataclasses.replace(tcfg.model, fp16=True)),
+                      device="cpu")
 # The two packages' forward passes in train mode differ by 3e-5 of the
 # DLASeg feature's scale (measured at these weights): convolutions and BN
 # moments summed in another order through 30 layers. The gradients inherit
@@ -83,7 +107,7 @@ def _configs(accum=1):
         return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=bb),
                                    solver=solver)
 
-    return cut(jcfg, "gather"), cut(tcfg, "cuda")
+    return cut(jcfg, "gather"), cut(tcfg, "auto")
 
 
 def _close(got, want, name, rel=REL):
@@ -206,22 +230,27 @@ def test_grad_accum_matches_microbatch_composition(reference):
 
 def test_port_step_is_deterministic_and_updates(reference):
     """Two runs of the step from the same weights give bitwise equal
-    gradients (a twin of tests/test_bf16_and_determinism.py's check), and
-    the update moves every parameter by a finite amount at the JAX
-    schedule's lr."""
+    gradients (a twin of tests/test_bf16_and_determinism.py's check), the
+    step runs in the deterministic mode and leaves the caller's settings as
+    they were, and the update moves every parameter by a finite amount at
+    the JAX schedule's lr."""
     _, _, g1 = _port(reference)
     trainer, _, g2 = _port(reference)
     for name in g1:
         assert np.array_equal(g1[name], g2[name]), name
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     jcfg, _ = _configs()
+    mode, seen = _mode(), []
+    hook = trainer.model.register_forward_pre_hook(lambda *_: seen.append(_mode()))
     logs = train_step(trainer, {k: v[:1] for k, v in reference["batch"].items()})
+    hook.remove()
+    assert seen == [(True, True, False)] and _mode() == mode  # the step alone ran in the mode
     assert np.isclose(float(logs["lr"]), float(jax_solver.make_lr_schedule(jcfg, 1000)(0)),
                       rtol=1e-6)
     moved = [float((p.detach() - before[n]).abs().max())
              for n, p in trainer.model.named_parameters()]
     assert all(np.isfinite(moved)) and sum(m > 0 for m in moved) > 0.9 * len(moved)
-    assert dcn_cuda.deform_conv2d.launches == 0  # CPU tensors never launch
+    assert not any(dcn_cuda.deform_conv2d.launches_by_kernel.values())  # CPU tensors never launch
 
 
 def test_build_trainer_refuses_cpu_fallback(monkeypatch):

@@ -102,10 +102,8 @@ def test_config_copy_matches_jax_package():
         t = fields(getattr(torch_config, make)())
         assert set(j) - set(t) == {"model.remat"}
         assert set(t) <= set(j)
-        for k in t:
-            if k != "model.backbone.dcn_impl":
-                assert t[k] == j[k], k
-        assert t["model.backbone.dcn_impl"] == "cuda"
+        for k in t:  # dcn_impl too: the port takes JAX's values and meanings
+            assert t[k] == j[k], k
 
 
 def _imports(path: Path):

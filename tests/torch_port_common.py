@@ -29,16 +29,17 @@ def _small(cfg, dcn_impl):
             backbone=dataclasses.replace(cfg.model.backbone, channels=CHANNELS),
         ),
     )
-    return _with_dcn(cfg, dcn_impl)
+    return with_dcn(cfg, dcn_impl)
 
 
 def small_configs():
     """(JAX config, port config). The JAX side samples with the unbounded
     gather form: its clamped dense form costs minutes of tracing on the CPU
     at model scale, and test_torch_dcn.py holds the port's clamped form
-    against it at the operator level. The model tests check that no offset
-    of their inputs reaches the clamp, so both sides compute one function."""
-    return _small(jax_dgde_run_config(), "gather"), _small(torch_dgde_run_config(), "plain")
+    against it at the operator level. The port runs its clamped plain form
+    ("dense"). The model tests check that no offset of their inputs reaches
+    the clamp, so both sides compute one function."""
+    return _small(jax_dgde_run_config(), "gather"), _small(torch_dgde_run_config(), "dense")
 
 
 def edge_inputs(cfg, B, rng):
@@ -57,7 +58,7 @@ def numpy_variables(jcfg, seed=0):
     0.3/sqrt(fan_in), as bench._realistic_offsets injects)."""
     # the parameter shapes do not depend on the DCN form; the offset-free
     # one traces in a fraction of the time
-    shaper = JaxDetector(_with_dcn(jcfg, "plain"))
+    shaper = JaxDetector(with_dcn(jcfg, "plain"))
     B = 1
     ei, el = edge_inputs(jcfg, B, np.random.RandomState(0))
     img = jnp.zeros((B, jcfg.input.height_train, jcfg.input.width_train, 3), jnp.float32)
@@ -84,7 +85,7 @@ def numpy_variables(jcfg, seed=0):
     return JaxDetector(jcfg), jax.tree_util.tree_map_with_path(draw, shapes)
 
 
-def _with_dcn(cfg, dcn_impl):
+def with_dcn(cfg, dcn_impl):
     bb = dataclasses.replace(cfg.model.backbone, dcn_impl=dcn_impl)
     return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=bb))
 
