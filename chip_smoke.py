@@ -9,7 +9,8 @@ Phases, each printing one line with its own seconds:
 2. build: one ``nvcc`` per ``dcd_tpu_torch/csrc/*.cu``, started together,
    and a link; prints ``-Xptxas -v``'s registers and spills, and the
    tensor-core instructions (HMMA/HGMMA) in the SASS of each instantiation
-   of the forward kernel (``cuobjdump``): every bf16 one must have them.
+   of the forward kernel and of each backward kernel (``cuobjdump``): every
+   bf16 forward and every backward kernel must have them.
 3. kernel: the forward kernel K1 at the seven DCN shapes of a 384x1280
    forward. At the main path's batch of 2, against its plain PyTorch
    version in fp32 (max abs err <= 1e-4 of the output's largest magnitude,
@@ -46,12 +47,17 @@ Phases, each printing one line with its own seconds:
    forward + postprocess timed and profiled at batch 2 and at batch 64.
 6. backward kernels: K2 (``dcn_bwd_pom``: grad offset, mask and weight)
    and K3 (``dcn_bwd_x``: grad x) against their plain versions (autograd of
-   the clamped form) at the same seven shapes, fp32 with TF32 off, offsets
-   of std 1.5 px (some beyond the clamp) and again with NaN offsets: max abs
-   err <= 1e-4 of each output's largest magnitude (fp32 sums reassociated
-   over up to 9 * Cout terms, and over all B*H*W pixels for grad_weight).
-   Each kernel runs twice and the two results must be bitwise equal. Timed
-   through the wrappers (K3 with its own tap products, as it runs alone).
+   the clamped form) at the same seven shapes, at batch 2 and at the run
+   config's ``ims_per_batch`` of 8, fp32 with TF32 off, offsets of std 1.5
+   px (some beyond the clamp) and again with NaN offsets: max abs err <=
+   1e-4 of each output's largest magnitude (fp32 sums reassociated over up
+   to 9 * Cout terms, and over all B*H*W pixels for grad_weight; the
+   products in 3xTF32). Each kernel runs twice and the two results must be
+   bitwise equal, and grad_x through ``DeformConv2dFunction``'s backward
+   must equal ``dcn_bwd_x`` alone bitwise. Timed through the wrappers (5
+   back-to-back calls per pair of CUDA events, turns of plain, kernel,
+   kernel, plain) beside two bounds (``bwd_bound_ms``) and, as a yardstick
+   only, the contractions alone in cuBLAS.
 7. train path: ``build_trainer(dgde_run_config(), device="cuda")`` at full
    width and depth, 384x1280, on 2 port-encoded synthetic KITTI scenes of
    1242x375 with 6 cars each (``ims_per_batch`` cut from 8 to 2). Step 0
@@ -105,6 +111,7 @@ from dcd_tpu_torch.engine.train import build_trainer, compute_gradients, train_s
 from dcd_tpu_torch.models.layers import DCN
 from dcd_tpu_torch.models.predictor import Converter_key2channel
 from dcd_tpu_torch.ops import dcn_cuda
+from dcd_tpu_torch.ops.dcn_cuda import DeformConv2dFunction
 from dcd_tpu_torch.ops.dcn import dcn_bwd_pom_plain, dcn_bwd_x_plain, deform_conv2d_clamped
 from dcd_tpu_torch.utils import cuda_build
 from dcd_tpu_torch.utils.weights import calibrate_batch_norm, realistic_offsets
@@ -146,12 +153,14 @@ PAIR_TERMS = ("pairs_kpts_depth_loss", "extra_all_MAE", "edges_MAE", "corner_los
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+# fp32 products on the tensor cores as 3xTF32: three passes at the dense
+# TF32 rate (494.7 TFLOP/s)
+TF32X3_FLOP_PER_S = 494.7e12 / 3
 # device kernels by kind, first match wins (cuDNN names its BN and layout
 # kernels too, so those come before the convolutions)
 KERNEL_KINDS = [
     ("dcn_fwd", ("dcn_fwd_kernel",)),
-    ("dcn_bwd_pom", ("tap_products_kernel", "bwd_pom_kernel", "bwd_weight_kernel",
-                     "bwd_weight_reduce_kernel")),
+    ("dcn_bwd_pom", ("bwd_pom_kernel", "bwd_weight_kernel", "bwd_weight_reduce_kernel")),
     ("dcn_bwd_x", ("bwd_x_kernel",)),
     # BN's kernels, and the Welford reductions of its running statistics
     ("batch_norm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm", "welford")),
@@ -203,18 +212,39 @@ def cuda_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
+def roofline_ms(nbytes, contraction, sampling, contraction_flop_per_s):
+    """(ms, what bounds it): the larger of the bytes over HBM and the
+    operations, the contraction at ``contraction_flop_per_s`` plus the
+    sampling at the fp32 rate outside the tensor cores."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = contraction / contraction_flop_per_s + sampling / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
 def bound_ms(cin, cout, h, w, batch=BATCH, dtype=torch.float32):
-    """Least time for the function at this shape: each input read once and
-    the output written once over HBM (offsets fp32, the rest in ``dtype``),
-    or its operations (the contraction plus 4 FMAs per sampled channel) at
-    the peak of ``dtype``: fp32 outside the tensor cores, bf16 on them."""
+    """Least time for K1 at this shape: each input read once and the output
+    written once over HBM (offsets fp32, the rest in ``dtype``), or its
+    operations: the contraction (2 * 9 * Cin * Cout per pixel) and 4 FMAs
+    per sampled channel. bf16: all on the tensor cores. fp32: the kernel
+    runs the contraction on the tensor cores as 3xTF32, so the bound takes
+    it at a third of the TF32 rate and the sampling at the fp32 rate; the
+    all-fp32-FMA bound (``bound_ms_fp32_fma``, the one stated before the
+    kernel used the tensor cores) counts the contraction at 67 TFLOP/s,
+    which a tensor-core kernel can beat."""
     p = batch * h * w
     size = torch.finfo(dtype).bits // 8
     nbytes = 4 * p * 18 + size * (p * (cin + 9 + cout) + 9 * cin * cout + cout)
-    flops = 2 * p * 9 * cin * (cout + 4)
-    peak = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+    contraction, sampling = 2 * p * 9 * cin * cout, 8 * p * 9 * cin
+    if dtype == torch.float32:
+        return roofline_ms(nbytes, contraction, sampling, TF32X3_FLOP_PER_S)
+    return roofline_ms(nbytes, contraction + sampling, 0, BF16_FLOP_PER_S)
+
+
+def bound_ms_fp32_fma(cin, cout, h, w, batch=BATCH):
+    """K1's fp32 bound with every operation at 67 TFLOP/s (fp32 FMAs)."""
+    p = batch * h * w
+    nbytes = 4 * (p * (18 + cin + 9 + cout) + 9 * cin * cout + cout)
+    return roofline_ms(nbytes, 2 * p * 9 * cin * (cout + 4), 0, FP32_FLOP_PER_S)
 
 
 def c_entry_call(x, off, mask, weight, bias):
@@ -301,6 +331,8 @@ def phase_kernel():
             times = timed_turns([("plain", plain), ("kernel", kernel), ("kernel", kernel),
                                  ("c_entry", c_entry_call(*a)), ("plain", plain)], 10)
             b_ms, b_by = bound_ms(cin, cout, h, w, BATCH, dt)
+            if dt == torch.float32:
+                row["fp32_bound_fma_ms"] = bound_ms_fp32_fma(cin, cout, h, w, BATCH)[0]
             row.update({f"{tag}_ms": times["kernel"], f"{tag}_c_entry_ms": times["c_entry"],
                         f"{tag}_plain_ms": times["plain"],
                         f"{tag}_bound_ms": b_ms, f"{tag}_bound_by": b_by})
@@ -639,26 +671,32 @@ def phase_main_path_bf16(ctx):
                 timing=timing)
 
 
-def bwd_bound_ms(cin, cout, h, w):
-    """Least times of the two backward functions at this shape in fp32, as
-    (K2 ms, K2 bound, K3 ms, K3 bound). Bytes: each input read once, each
-    output written once. Operations, counted from dcn_bwd.cu: the tap
-    products U = W g (2 * 9 * Cin * Cout per pixel, in both functions, since
-    each runs alone here), grad_weight's contraction (the same again, K2),
-    21 per pixel, tap and input channel for the samples, their offset
-    derivatives and the three products with U (K2's bwd_pom_kernel), 8 for
-    grad_weight's samples (K2), and 8 for K3's four corner FMAs."""
-    p = BATCH * h * w
+def bwd_bound_ms(cin, cout, h, w, batch):
+    """Least times of the two backward functions at this shape in fp32, both
+    ways: {"k2"|"k3": {"tf32x3": (ms, by), "fp32_fma": (ms, by)}}. Bytes:
+    each input read once, each output written once. Operations, counted
+    from dcn_bwd.cu: the contractions, 2 * 9 * Cin * Cout per pixel each
+    (K2: the tap products U and grad_weight; K3: G times W), and the
+    sampling outside them: 21 per pixel, tap and input channel for the
+    samples, their offset derivatives and the three products with U, and 1
+    for grad_weight's operand mask * s (K2; bwd_weight_kernel gathers the
+    samples a second time, a choice of design that the function does not
+    need, so those 8 are not counted); 8 per pixel, tap and output channel
+    for the four corners' FMAs of the gather G (K3). The kernels run the
+    contractions on the tensor cores as 3xTF32, so the bound is "tf32x3":
+    the contractions at a third of the TF32 rate plus the sampling at the
+    fp32 rate. "fp32_fma" (every operation at 67 TFLOP/s, the bound of
+    fp32-FMA kernels) is kept beside it; a tensor-core kernel can beat it."""
+    p = batch * h * w
     contraction = 2 * p * 9 * cin * cout
-    k2_bytes = 4 * (p * (cin + 18 + 9 + cout) + 9 * cin * cout + p * (18 + 9) + 9 * cin * cout)
-    k2_ops = 2 * contraction + (21 + 8) * p * 9 * cin
-    k3_bytes = 4 * (p * (18 + 9 + cout) + 9 * cin * cout + p * cin)
-    k3_ops = contraction + 8 * p * 9 * cin
-    out = []
-    for nbytes, ops in ((k2_bytes, k2_ops), (k3_bytes, k3_ops)):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
-        out += [1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"]
-    return out
+    sides = {
+        "k2": (4 * (p * (cin + 18 + 9 + cout) + 9 * cin * cout + p * (18 + 9) + 9 * cin * cout),
+               2 * contraction, (21 + 1) * p * 9 * cin),
+        "k3": (4 * (p * (18 + 9 + cout) + 9 * cin * cout + p * cin), contraction, 8 * p * 9 * cout),
+    }
+    return {name: {"tf32x3": roofline_ms(nbytes, con, smp, TF32X3_FLOP_PER_S),
+                   "fp32_fma": roofline_ms(nbytes, con + smp, 0, FP32_FLOP_PER_S)}
+            for name, (nbytes, con, smp) in sides.items()}
 
 
 def _rel_err(got, want):
@@ -666,80 +704,124 @@ def _rel_err(got, want):
     return float((got - want).abs().max()), float(want.abs().max())
 
 
+BWD_BATCHES = (BATCH, 8)  # the main path's batch, and the run config's ims_per_batch
+
+
+def bwd_contractions_cublas_ms(cin, cout, h, w, batch, gen):
+    """The backward's contractions alone in cuBLAS (fp32, TF32 off), a
+    yardstick only, not the same functions: K2 the tap products g W^T
+    ((P, Cout) by (Cout, 9 Cin)) and grad_weight's columns^T g ((9 Cin, P)
+    by (P, Cout)); K3 the gathered G by W ((P, 9 Cout) by (9 Cout, Cin))."""
+    p = batch * h * w
+    g = torch.randn((p, cout), generator=gen, device="cuda")
+    wt = torch.randn((cout, 9 * cin), generator=gen, device="cuda")
+    cols = torch.randn((p, 9 * cin), generator=gen, device="cuda")
+    gcols = torch.randn((p, 9 * cout), generator=gen, device="cuda")
+    wx = torch.randn((9 * cout, cin), generator=gen, device="cuda")
+    t = timed_turns([("u", lambda: torch.matmul(g, wt)), ("gw", lambda: torch.matmul(cols.T, g)),
+                     ("gx", lambda: torch.matmul(gcols, wx))], 3)
+    return t["u"] + t["gw"], t["gx"]
+
+
 def phase_backward():
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for cin, cout, h, w, count in DCN_SHAPES:
-        t0 = time.perf_counter()
-        x, off, mask, weight, _ = dcn_inputs(cin, cout, h, w, gen)
-        g = torch.randn((BATCH, h, w, cout), generator=gen, device="cuda")
-        go, gm, gw, u = dcn_cuda.dcn_bwd_pom(x, off, mask, weight, g, RADIUS)
-        gx = dcn_cuda.dcn_bwd_x(x, off, mask, weight, g, RADIUS)
-        again = dcn_cuda.dcn_bwd_pom(x, off, mask, weight, g, RADIUS)
-        gx_again = dcn_cuda.dcn_bwd_x(x, off, mask, weight, g, RADIUS)
-        gx_shared = dcn_cuda.dcn_bwd_x(x, off, mask, weight, g, RADIUS, u)
-        want = dict(zip(("grad_offset", "grad_mask", "grad_weight"),
-                        dcn_bwd_pom_plain(x, off, mask, weight, g, RADIUS)))
-        want["grad_x"] = dcn_bwd_x_plain(x, off, mask, weight, g, RADIUS)
-        torch.cuda.synchronize()
-        got = dict(grad_offset=go, grad_mask=gm, grad_weight=gw, grad_x=gx)
-        errs = {}
-        for name, t in got.items():
-            err, scale = _rel_err(t, want[name])
-            errs[name] = dict(max_abs_err=err, scale=scale)
-            if not err <= BWD_TOL * scale:
-                raise AssertionError(f"{name} {cin}->{cout}@{h}x{w}: max abs err {err} > "
-                                     f"{BWD_TOL} x {scale}")
-        # a NaN offset drops its tap: the kernels give what autograd of the
-        # plain version gives, and no NaN
-        nan_off = with_nan_offsets(off)
-        nan_got = dict(zip(("grad_offset", "grad_mask", "grad_weight"),
-                           dcn_cuda.dcn_bwd_pom(x, nan_off, mask, weight, g, RADIUS)[:3]))
-        nan_got["grad_x"] = dcn_cuda.dcn_bwd_x(x, nan_off, mask, weight, g, RADIUS)
-        nan_want = dict(zip(("grad_offset", "grad_mask", "grad_weight"),
-                            dcn_bwd_pom_plain(x, nan_off, mask, weight, g, RADIUS)))
-        nan_want["grad_x"] = dcn_bwd_x_plain(x, nan_off, mask, weight, g, RADIUS)
-        for name, t in nan_got.items():
-            err, _ = check_kernel(t, nan_want[name], BWD_TOL, f"NaN offsets {name} {cin}->{cout}@{h}x{w}")
-            errs[name]["nan_max_abs_err"] = err
-        del nan_got, nan_want
-        for a, b, name in ((go, again[0], "grad_offset"), (gm, again[1], "grad_mask"),
-                           (gw, again[2], "grad_weight"), (u, again[3], "tap products"),
-                           (gx, gx_again, "grad_x"), (gx, gx_shared, "grad_x from K2's U")):
-            if not (a is b is None or torch.equal(a, b)):  # U is None on the CPU only
-                raise AssertionError(f"{name} {cin}->{cout}@{h}x{w}: two runs differ")
-
-        def k2():
-            dcn_cuda.dcn_bwd_pom(x, off, mask, weight, g, RADIUS)
-
-        def k3():
-            dcn_cuda.dcn_bwd_x(x, off, mask, weight, g, RADIUS)
-
-        def p2():
-            dcn_bwd_pom_plain(x, off, mask, weight, g, RADIUS)
-
-        def p3():
-            dcn_bwd_x_plain(x, off, mask, weight, g, RADIUS)
-
-        k2(), k3(), p2(), p3()
-        times = {"k2": [], "k3": [], "p2": [], "p3": []}
-        for _ in range(3):
-            for name, fn in (("p2", p2), ("k2", k2), ("k2", k2), ("p2", p2),
-                             ("p3", p3), ("k3", k3), ("k3", k3), ("p3", p3)):
-                times[name].append(cuda_ms(fn))
-        b2, by2, b3, by3 = bwd_bound_ms(cin, cout, h, w)
-        row = dict(cin=cin, cout=cout, h=h, w=w, batch=BATCH, count=count, errors=errs,
-                   pom_ms=statistics.median(times["k2"]), pom_plain_ms=statistics.median(times["p2"]),
-                   pom_bound_ms=b2, pom_bound_by=by2,
-                   x_ms=statistics.median(times["k3"]), x_plain_ms=statistics.median(times["p3"]),
-                   x_bound_ms=b3, x_bound_by=by3)
-        rows.append(row)
-        rel = ", ".join(f"{k} {v['max_abs_err']:.3g} (max {v['scale']:.3g})" for k, v in errs.items())
-        say("backward", time.perf_counter() - t0,
-            f"{cin}->{cout} @ {BATCH}x{h}x{w} x{count}: {rel}; bitwise repeatable; "
-            f"K2 {row['pom_ms']:.4f} ms (plain {row['pom_plain_ms']:.4f}, bound {b2:.4f} {by2}), "
-            f"K3 {row['x_ms']:.4f} ms (plain {row['x_plain_ms']:.4f}, bound {b3:.4f} {by3})")
+        for batch in BWD_BATCHES:
+            rows.append(backward_shape(cin, cout, h, w, count, batch, gen))
+            torch.cuda.empty_cache()
     return rows
+
+
+def backward_shape(cin, cout, h, w, count, batch, gen):
+    """K2 and K3 at one shape and batch: checked, bitwise repeatable, the
+    Function's grad_x bitwise that of K3 alone, timed beside the plain
+    versions, the bounds and the contractions in cuBLAS."""
+    t0 = time.perf_counter()
+    tag = f"{cin}->{cout}@{batch}x{h}x{w}"
+    x, off, mask, weight, _ = dcn_inputs(cin, cout, h, w, gen, batch)
+    g = torch.randn((batch, h, w, cout), generator=gen, device="cuda")
+    go, gm, gw = dcn_cuda.dcn_bwd_pom(x, off, mask, weight, g, RADIUS)
+    gx = dcn_cuda.dcn_bwd_x(x, off, mask, weight, g, RADIUS)
+    again = dcn_cuda.dcn_bwd_pom(x, off, mask, weight, g, RADIUS)
+    gx_again = dcn_cuda.dcn_bwd_x(x, off, mask, weight, g, RADIUS)
+    # grad_x through the autograd Function (K2 and K3 back to back, as the
+    # train step runs them) against K3 alone
+    leaves = [t.detach().requires_grad_() for t in (x, off, mask, weight)]
+    DeformConv2dFunction.apply(*leaves, None, RADIUS).backward(g)
+    gx_function = leaves[0].grad
+    del leaves
+    want = dict(zip(("grad_offset", "grad_mask", "grad_weight"),
+                    dcn_bwd_pom_plain(x, off, mask, weight, g, RADIUS)))
+    want["grad_x"] = dcn_bwd_x_plain(x, off, mask, weight, g, RADIUS)
+    torch.cuda.synchronize()
+    got = dict(grad_offset=go, grad_mask=gm, grad_weight=gw, grad_x=gx)
+    errs = {}
+    for name, t in got.items():
+        err, scale = _rel_err(t, want[name])
+        errs[name] = dict(max_abs_err=err, scale=scale)
+        if not err <= BWD_TOL * scale:
+            raise AssertionError(f"{name} {tag}: max abs err {err} > {BWD_TOL} x {scale}")
+    del want
+    # a NaN offset drops its tap: the kernels give what autograd of the
+    # plain version gives, and no NaN
+    nan_off = with_nan_offsets(off)
+    nan_got = dict(zip(("grad_offset", "grad_mask", "grad_weight"),
+                       dcn_cuda.dcn_bwd_pom(x, nan_off, mask, weight, g, RADIUS)))
+    nan_got["grad_x"] = dcn_cuda.dcn_bwd_x(x, nan_off, mask, weight, g, RADIUS)
+    nan_want = dict(zip(("grad_offset", "grad_mask", "grad_weight"),
+                        dcn_bwd_pom_plain(x, nan_off, mask, weight, g, RADIUS)))
+    nan_want["grad_x"] = dcn_bwd_x_plain(x, nan_off, mask, weight, g, RADIUS)
+    for name, t in nan_got.items():
+        err, _ = check_kernel(t, nan_want[name], BWD_TOL, f"NaN offsets {name} {tag}")
+        errs[name]["nan_max_abs_err"] = err
+    del nan_got, nan_want
+    for a, b, name in ((go, again[0], "grad_offset"), (gm, again[1], "grad_mask"),
+                       (gw, again[2], "grad_weight"), (gx, gx_again, "grad_x"),
+                       (gx, gx_function, "grad_x through DeformConv2dFunction and alone")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} {tag}: two runs differ")
+    del again, gx_again, gx_function
+
+    def k2():
+        dcn_cuda.dcn_bwd_pom(x, off, mask, weight, g, RADIUS)
+
+    def k3():
+        dcn_cuda.dcn_bwd_x(x, off, mask, weight, g, RADIUS)
+
+    def p2():
+        dcn_bwd_pom_plain(x, off, mask, weight, g, RADIUS)
+
+    def p3():
+        dcn_bwd_x_plain(x, off, mask, weight, g, RADIUS)
+
+    k2(), k3(), p2(), p3()
+    times = {"k2": [], "k3": [], "p2": [], "p3": []}
+    for _ in range(3):
+        for name, fn in (("p2", p2), ("k2", k2), ("k2", k2), ("p2", p2),
+                         ("p3", p3), ("k3", k3), ("k3", k3), ("p3", p3)):
+            times[name].append(cuda_ms(fn))
+    del x, off, mask, weight, g, go, gm, gw, gx
+    k2_cublas, k3_cublas = bwd_contractions_cublas_ms(cin, cout, h, w, batch, gen)
+    bounds = bwd_bound_ms(cin, cout, h, w, batch)
+    row = dict(cin=cin, cout=cout, h=h, w=w, batch=batch, count=count, errors=errs,
+               pom_ms=statistics.median(times["k2"]), pom_plain_ms=statistics.median(times["p2"]),
+               pom_bound_ms=bounds["k2"]["tf32x3"][0], pom_bound_by=bounds["k2"]["tf32x3"][1],
+               pom_bound_fma_ms=bounds["k2"]["fp32_fma"][0], pom_cublas_ms=k2_cublas,
+               x_ms=statistics.median(times["k3"]), x_plain_ms=statistics.median(times["p3"]),
+               x_bound_ms=bounds["k3"]["tf32x3"][0], x_bound_by=bounds["k3"]["tf32x3"][1],
+               x_bound_fma_ms=bounds["k3"]["fp32_fma"][0], x_cublas_ms=k3_cublas)
+    rel = ", ".join(f"{k} {v['max_abs_err']:.3g} (max {v['scale']:.3g}, NaN {v['nan_max_abs_err']:.3g})"
+                    for k, v in errs.items())
+    say("backward", time.perf_counter() - t0,
+        f"{tag} x{count}: {rel}; bitwise repeatable, Function = alone; "
+        f"K2 {row['pom_ms']:.4f} ms (plain {row['pom_plain_ms']:.4f}, bound 3xTF32 "
+        f"{row['pom_bound_ms']:.4f} {row['pom_bound_by']}, fp32 FMA {row['pom_bound_fma_ms']:.4f}, "
+        f"contractions only, cuBLAS {k2_cublas:.4f}), "
+        f"K3 {row['x_ms']:.4f} ms (plain {row['x_plain_ms']:.4f}, bound 3xTF32 {row['x_bound_ms']:.4f} "
+        f"{row['x_bound_by']}, fp32 FMA {row['x_bound_fma_ms']:.4f}, contraction only, cuBLAS "
+        f"{k3_cublas:.4f})")
+    return row
 
 
 def train_batch(cfg):
@@ -926,24 +1008,33 @@ def phase_train():
                 images_per_s=BATCH / step_s, objects=n_obj, profile=prof)
 
 
+BWD_KERNELS = ("bwd_pom_kernel", "bwd_weight_kernel", "bwd_x_kernel")
+
+
 def tensor_core_instructions():
     """HMMA/HGMMA instructions in the SASS of each instantiation of the
-    forward kernel (cuobjdump of the built library); raises unless every
-    bf16 one has them."""
+    forward kernel and of each backward kernel that multiplies (cuobjdump of
+    the built library); raises unless every bf16 forward and every backward
+    one has them."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(cuda_build.LIBRARY)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
     counts = {}
     for section in sass.split("Function : ")[1:]:
         name = section.split("\n", 1)[0].strip()
-        if "dcn_fwd_kernel" not in name:
-            continue
-        m = re.search(r"dcn_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", name)
-        key = f"{'bf16' if m[1] != 'f' else 'fp32'} {m[2]}x{m[3]}" if m else name[:60]
+        if "dcn_fwd_kernel" in name:
+            m = re.search(r"dcn_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", name)
+            key = f"{'bf16' if m[1] != 'f' else 'fp32'} {m[2]}x{m[3]}" if m else name[:60]
+        else:
+            key = next((k for k in BWD_KERNELS if f"{len(k)}{k}E" in name), None)
+            if key is None:
+                continue
         counts[key] = len(re.findall(r"\bH(?:G)?MMA\b", section))
     bf16 = {k: v for k, v in counts.items() if k.startswith("bf16")}
     if not bf16 or not all(bf16.values()):
         raise AssertionError(f"a bf16 forward kernel has no HMMA/HGMMA in its SASS: {counts}")
+    if not all(counts.get(k) for k in BWD_KERNELS):
+        raise AssertionError(f"a backward kernel has no HMMA/HGMMA in its SASS: {counts}")
     return counts
 
 
@@ -970,7 +1061,7 @@ def main():
     t1 = time.perf_counter()
     mma = tensor_core_instructions()
     say("build", time.perf_counter() - t1,
-        "tensor-core instructions in the SASS of each forward kernel: "
+        "tensor-core instructions in the SASS of each forward and backward kernel: "
         + ", ".join(f"{k} {v}" for k, v in mma.items()))
 
     shapes = phase_kernel()
@@ -1002,21 +1093,26 @@ def main():
         "library_ms": None,
     } for name, tag, launches in (("dcn_fwd", "fp32", main_path["launches"]),
                                   ("dcn_fwd_bf16", "bf16", main_bf16["launches"]["dcn_fwd_bf16"]))]
-    for name, key, replaces in (("dcn_bwd_pom", "pom", "dcd_tpu/ops/dcn_pallas.py:859"),
-                                ("dcn_bwd_x", "x", "dcd_tpu/ops/dcn_pallas.py:1246")):
+    # K2 and K3 per train step at batch 2: the sum over the 16 DCN blocks
+    step_rows = [r for r in backward if r["batch"] == BATCH]
+    for name, key, replaces, cuda_kernels in (
+            ("dcn_bwd_pom", "pom", "dcd_tpu/ops/dcn_pallas.py:859",
+             ["bwd_pom_kernel", "bwd_weight_kernel", "bwd_weight_reduce_kernel"]),
+            ("dcn_bwd_x", "x", "dcd_tpu/ops/dcn_pallas.py:1246", ["bwd_x_kernel"])):
         grads = ("grad_offset", "grad_mask", "grad_weight") if key == "pom" else ("grad_x",)
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "dcd_tpu_torch/csrc/dcn_bwd.cu",
             "replaces": replaces,
+            "cuda_kernels": cuda_kernels,
             "launches": train["launches"][name],
             "max_abs_err": max(r["errors"][gname]["max_abs_err"] for r in backward for gname in grads),
-            "ms": sum(r[f"{key}_ms"] * r["count"] for r in backward),
-            "plain_ms": sum(r[f"{key}_plain_ms"] * r["count"] for r in backward),
-            "bound_ms": sum(r[f"{key}_bound_ms"] * r["count"] for r in backward),
+            "ms": sum(r[f"{key}_ms"] * r["count"] for r in step_rows),
+            "plain_ms": sum(r[f"{key}_plain_ms"] * r["count"] for r in step_rows),
+            "bound_ms": sum(r[f"{key}_bound_ms"] * r["count"] for r in step_rows),
             "bound_by": max(("bytes", "operations"),
-                            key=lambda b: sum(r[f"{key}_bound_ms"] * r["count"] for r in backward
+                            key=lambda b: sum(r[f"{key}_bound_ms"] * r["count"] for r in step_rows
                                               if r[f"{key}_bound_by"] == b)),
             "library_ms": None,
         })

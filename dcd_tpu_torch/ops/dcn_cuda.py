@@ -37,6 +37,19 @@ def _check_specs(specs) -> None:
             raise ValueError(f"{name} must be contiguous on {dev}")
 
 
+def _check_vectors(x, weight, *more) -> None:
+    """The kernels read channels in 16-byte vectors (of x, weight and
+    ``more``) and index pixels in int32."""
+    B, H, W, Cin = x.shape
+    Cout = weight.shape[3]
+    if Cin % 8 or Cout % 8:
+        raise ValueError(f"Cin and Cout must be multiples of 8, got {Cin} and {Cout}")
+    if any(t.data_ptr() % 16 for t in (x, weight, *more)):
+        raise ValueError("the kernels' inputs must start on a 16-byte boundary")
+    if B * H * W >= 2 ** 31:
+        raise ValueError(f"B*H*W must be below 2^31, got {B * H * W}")
+
+
 def _check(x, offset, mask, weight, bias) -> None:
     if x.dim() != 4 or x.dtype not in _KERNELS:
         raise TypeError(f"x must be (B, H, W, Cin) float32 or bfloat16, got {tuple(x.shape)} {x.dtype}")
@@ -50,14 +63,7 @@ def _check(x, offset, mask, weight, bias) -> None:
     if bias is not None:
         specs.append(("bias", bias, (weight.shape[3],), x.dtype))
     _check_specs(specs)
-    # the kernel reads x and W in 16-byte vectors and indexes pixels in int32
-    Cout = weight.shape[3]
-    if Cin % 8 or Cout % 8:
-        raise ValueError(f"Cin and Cout must be multiples of 8, got {Cin} and {Cout}")
-    if x.data_ptr() % 16 or weight.data_ptr() % 16:
-        raise ValueError("x and weight must start on a 16-byte boundary")
-    if B * H * W >= 2 ** 31:
-        raise ValueError(f"B*H*W must be below 2^31, got {B * H * W}")
+    _check_vectors(x, weight)
 
 
 def _check_bwd(x, offset, mask, weight, g) -> None:
@@ -121,15 +127,21 @@ def deform_conv2d(
     return out
 
 
-def _tap_products(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """U (B, H, W, 9, Cin): U_k(p) = W_k g(p), the product both backward
-    kernels contract with; on the card, by ``dcn_tap_products_f32``."""
-    B, H, W, Cout = g.shape
-    Cin = weight.shape[2]
-    u = torch.empty((B, H, W, 9, Cin), dtype=torch.float32, device=g.device)
-    _launch("dcn_tap_products_f32", g.device, g.data_ptr(), weight.data_ptr(), u.data_ptr(),
-            B, H, W, Cin, Cout)
-    return u
+# The largest radius of K3: bwd_x_kernel's halo and its 32-bit masks of
+# candidate sources are sized for MAX_R of csrc/dcn_bwd.cu.
+BWD_X_MAX_RADIUS = 4
+
+
+def _check_bwd_kernel(x, offset, weight, g, radius, max_radius=None) -> None:
+    """What the backward kernels take beyond :func:`_check_bwd`: 16-byte
+    vectors of x, g and W, offsets in 8-byte pairs, int32 pixel indices,
+    and a radius of at least 0 (and at most ``max_radius``)."""
+    _check_vectors(x, weight, g)
+    if offset.data_ptr() % 8:
+        raise ValueError("offset must start on an 8-byte boundary")
+    if int(radius) < 0 or (max_radius is not None and int(radius) > max_radius):
+        top = "" if max_radius is None else f", {max_radius}"
+        raise ValueError(f"radius must be in [0{top}] for this backward kernel, got {radius}")
 
 
 def dcn_bwd_pom(
@@ -139,31 +151,29 @@ def dcn_bwd_pom(
     weight: torch.Tensor,  # (3, 3, Cin, Cout) float32
     g: torch.Tensor,  # (B, H, W, Cout) float32, the cotangent of the output
     radius: int = 3,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """K2: (grad_offset, grad_mask, grad_weight, U) of the clamped deformable
-    conv. ``U`` is the tap product the kernel computed on the way, for
-    :func:`dcn_bwd_x` to reuse (None on the CPU).
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2: (grad_offset, grad_mask, grad_weight) of the clamped deformable
+    conv.
 
     ``dcn_bwd_pom.launches`` counts the calls that launched the kernels.
     """
     _check_bwd(x, offset, mask, weight, g)
     if _device_of(x) == "cpu":
-        return (*dcn_bwd_pom_plain(x, offset, mask, weight, g, radius), None)
+        return dcn_bwd_pom_plain(x, offset, mask, weight, g, radius)
+    _check_bwd_kernel(x, offset, weight, g, radius)
     B, H, W, Cin = x.shape
     Cout = weight.shape[3]
-    lib = cuda_build.library()
-    splits = lib.dcn_bwd_weight_splits(B, H, W, Cin, Cout)
-    u = _tap_products(g, weight)
+    splits = cuda_build.library().dcn_bwd_weight_splits(B, H, W, Cin, Cout)
     go = torch.empty((B, H, W, 18), dtype=torch.float32, device=x.device)
     gm = torch.empty((B, H, W, 9), dtype=torch.float32, device=x.device)
     gw = torch.empty((3, 3, Cin, Cout), dtype=torch.float32, device=x.device)
     part = torch.empty((splits, 9 * Cin * Cout), dtype=torch.float32, device=x.device)
     _launch("dcn_bwd_pom_f32", x.device,
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), g.data_ptr(), u.data_ptr(),
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), g.data_ptr(), weight.data_ptr(),
             go.data_ptr(), gm.data_ptr(), gw.data_ptr(), part.data_ptr(),
             B, H, W, Cin, Cout, int(radius), splits)
     dcn_bwd_pom.launches += 1
-    return go, gm, gw, u
+    return go, gm, gw
 
 
 def dcn_bwd_x(
@@ -173,27 +183,22 @@ def dcn_bwd_x(
     weight: torch.Tensor,  # (3, 3, Cin, Cout) float32
     g: torch.Tensor,  # (B, H, W, Cout) float32
     radius: int = 3,
-    u: Optional[torch.Tensor] = None,  # (B, H, W, 9, Cin) from dcn_bwd_pom
 ) -> torch.Tensor:
-    """K3: grad_x of the clamped deformable conv, a gather over the source
-    pixels each input pixel feeds. ``u``, when given, is the tap product
-    that :func:`dcn_bwd_pom` returned for the same ``g`` and ``weight``;
-    otherwise the wrapper computes it first.
+    """K3: grad_x of the clamped deformable conv, sum_k W_k G_k with G_k the
+    transposed gather of mask * g over the source pixels each input pixel
+    feeds.
 
     ``dcn_bwd_x.launches`` counts the calls that launched the kernel.
     """
     _check_bwd(x, offset, mask, weight, g)
     if _device_of(x) == "cpu":
         return dcn_bwd_x_plain(x, offset, mask, weight, g, radius)
+    _check_bwd_kernel(x, offset, weight, g, radius, BWD_X_MAX_RADIUS)
     B, H, W, Cin = x.shape
-    if u is None:
-        u = _tap_products(g, weight)
-    else:
-        _check_specs([("g", g, tuple(g.shape), torch.float32),
-                      ("u", u, (B, H, W, 9, Cin), torch.float32)])
+    Cout = weight.shape[3]
     gx = torch.empty((B, H, W, Cin), dtype=torch.float32, device=x.device)
-    _launch("dcn_bwd_x_f32", x.device, offset.data_ptr(), mask.data_ptr(), u.data_ptr(),
-            gx.data_ptr(), B, H, W, Cin, int(radius))
+    _launch("dcn_bwd_x_f32", x.device, offset.data_ptr(), mask.data_ptr(), g.data_ptr(),
+            weight.data_ptr(), gx.data_ptr(), B, H, W, Cin, Cout, int(radius))
     dcn_bwd_x.launches += 1
     return gx
 
@@ -228,7 +233,7 @@ class DeformConv2dFunction(torch.autograd.Function):
     def backward(ctx, g):
         x, offset, mask, weight = ctx.saved_tensors
         g = g.contiguous()
-        go, gm, gw, u = dcn_bwd_pom(x, offset, mask, weight, g, ctx.radius)
-        gx = dcn_bwd_x(x, offset, mask, weight, g, ctx.radius, u)
+        go, gm, gw = dcn_bwd_pom(x, offset, mask, weight, g, ctx.radius)
+        gx = dcn_bwd_x(x, offset, mask, weight, g, ctx.radius)
         gb = g.sum((0, 1, 2)) if ctx.has_bias else None
         return gx, go, gm, gw, gb, None

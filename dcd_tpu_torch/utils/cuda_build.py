@@ -101,12 +101,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "dcn_fwd_tile_n": [i32] * 4,
         # B, H, W, Cin, Cout
         "dcn_bwd_weight_splits": [i32] * 5,
-        # g, weight, u, B, H, W, Cin, Cout, stream
-        "dcn_tap_products_f32": [ptr] * 3 + [i32] * 5 + [ptr],
-        # x, offset, mask, g, u, go, gm, gw, part, B, H, W, Cin, Cout, radius, splits, stream
+        # x, offset, mask, g, weight, go, gm, gw, part, B, H, W, Cin, Cout, radius, splits, stream
         "dcn_bwd_pom_f32": [ptr] * 9 + [i32] * 7 + [ptr],
-        # offset, mask, u, gx, B, H, W, Cin, radius, stream
-        "dcn_bwd_x_f32": [ptr] * 4 + [i32] * 5 + [ptr],
+        # offset, mask, g, weight, gx, B, H, W, Cin, Cout, radius, stream
+        "dcn_bwd_x_f32": [ptr] * 5 + [i32] * 6 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
