@@ -17,7 +17,7 @@ counterparts of ``dcd_tpu.engine.train.build_model`` and
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -200,10 +200,12 @@ def postprocess(cfg: Config, predictions: Dict[str, torch.Tensor], calib_P: torc
 @torch.no_grad()
 def infer(model: KeypointDetector, images: torch.Tensor, edge_indices: torch.Tensor,
           edge_len: torch.Tensor, calib_P: torch.Tensor, pad_size: torch.Tensor,
-          img_size: torch.Tensor) -> Dict[str, torch.Tensor]:
+          img_size: torch.Tensor, cfg: Optional[Config] = None) -> Dict[str, torch.Tensor]:
     """Images (B, H, W, 3) -> KITTI rows, on the model's device; the heads
-    take the lazy top-K path when ``cfg.test.lazy_reg_heads`` is set."""
-    cfg = model.cfg
+    take the lazy top-K path when ``cfg.test.lazy_reg_heads`` is set.
+    ``cfg`` (the model's unless given) sets the test-time options, such as
+    the detection threshold."""
+    cfg = model.cfg if cfg is None else cfg
     dev = next(model.parameters()).device
     preds = model(images.to(dev), edge_indices.to(dev), edge_len.to(dev),
                   lazy_topk=cfg.test.lazy_reg_heads)

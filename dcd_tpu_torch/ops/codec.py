@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .nms import topk_like_jax
+
 PI = float(np.pi)
 
 # multi-bin orientation centres (reference anno_encoder.py:40)
@@ -162,7 +164,7 @@ def decode_pairs_kpts_depth(kpts_2d_img, kpts_3d, rot_y, calib_P, training: bool
     if kpts_2d_mask is not None:
         m = kpts_2d_mask.to(z.dtype)
         pair_mask = m[:, i_idx] * m[:, j_idx]
-    good = torch.topk(torch.abs(dV), pairs_topk, dim=-1).indices
+    good = topk_like_jax(torch.abs(dV), pairs_topk)[1]
     z = torch.gather(z, 1, good)
     if pair_mask is not None:
         pair_mask = torch.gather(pair_mask, 1, good)

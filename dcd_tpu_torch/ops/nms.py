@@ -2,7 +2,8 @@
 
 The counterpart of ``dcd_tpu/ops/nms.py`` (reference
 ``DGDE/model/layers/utils.py``: sigmoid_hm :39, nms_hm :45, select_topk
-:61, select_point_of_interest :120).
+:61, select_point_of_interest :120), and :func:`topk_like_jax`, the top-k
+that every top-k of the port goes through.
 """
 
 from __future__ import annotations
@@ -26,6 +27,16 @@ def nms_hm(heat_map: torch.Tensor, kernel: int = 3) -> torch.Tensor:
     return heat_map * (hmax == heat_map).to(heat_map.dtype)
 
 
+def topk_like_jax(x: torch.Tensor, k: int, dim: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the ``k`` largest entries along ``dim``, in
+    descending order and, among equal values, lower index first, as
+    ``jax.lax.top_k`` gives them. ``torch.topk`` orders ties otherwise and
+    may even keep another set at the k-th place; a stable descending sort
+    keeps ties in index order."""
+    values, indices = torch.sort(x, dim=dim, descending=True, stable=True)
+    return values.narrow(dim, 0, k), indices.narrow(dim, 0, k)
+
+
 def select_topk(heat_map: torch.Tensor, K: int = 100) -> Tuple[torch.Tensor, ...]:
     """Top-K peaks across all classes of a (B, H, W, C) map.
 
@@ -34,11 +45,11 @@ def select_topk(heat_map: torch.Tensor, K: int = 100) -> Tuple[torch.Tensor, ...
     """
     B, H, W, C = heat_map.shape
     hm = heat_map.permute(0, 3, 1, 2).reshape(B, C, H * W)
-    topk_scores_all, topk_inds_all = torch.topk(hm, K, dim=-1)  # (B, C, K)
+    topk_scores_all, topk_inds_all = topk_like_jax(hm, K)  # (B, C, K)
     topk_ys = torch.div(topk_inds_all, W, rounding_mode="floor").float()
     topk_xs = (topk_inds_all % W).float()
 
-    topk_scores, topk_inds = torch.topk(topk_scores_all.reshape(B, C * K), K, dim=-1)
+    topk_scores, topk_inds = topk_like_jax(topk_scores_all.reshape(B, C * K), K)
     topk_clses = torch.div(topk_inds, K, rounding_mode="floor").float()
 
     def gather_bk(x):

@@ -13,7 +13,8 @@ detector, whose names are the reference torch model's. It is the inverse of
   dx_t = ch[2t+1]), so the carry applies the inverse of the importer's
   channel permutation.
 
-Everything here is numpy on the carry side; nothing imports JAX.
+:func:`from_jax_gmw_params` does the same for the stage-2 GMW, the inverse
+of ``import_torch_gmw``. Everything here is numpy on the carry side; nothing imports JAX.
 """
 
 from __future__ import annotations
@@ -125,9 +126,28 @@ def from_jax_variables(variables: Mapping, cfg: Config) -> Dict[str, np.ndarray]
     return sd
 
 
+def from_jax_gmw_params(params: Mapping) -> Dict[str, np.ndarray]:
+    """Flax params of ``dcd_tpu.models.gmw.GMW`` (with or without the
+    ``"params"`` level) -> the port's GMW state dict, whose names are the
+    reference's: a Dense kernel (in, out) becomes a Conv1d weight
+    (out, in, 1). The inverse of ``dcd_tpu.utils.checkpoint.import_torch_gmw``."""
+    leaves = _flatten(params.get("params", params))
+    sd = {}
+    for path, value in leaves.items():
+        *mods, leaf = path
+        value = np.asarray(value, np.float32)
+        if leaf == "kernel":
+            value = np.transpose(value)[:, :, None]
+        sd[".".join(mods + ["0", "weight" if leaf == "kernel" else leaf])] = np.ascontiguousarray(value)
+    return sd
+
+
 def load_state(model: torch.nn.Module, state: Mapping[str, np.ndarray]) -> None:
     """Load a numpy state dict whose keys are exactly the model's (BN's
-    ``num_batches_tracked`` counters aside)."""
+    ``num_batches_tracked`` counters aside), after dropping the ``module.``
+    prefix that a checkpoint saved from a ``DistributedDataParallel``
+    model carries."""
+    state = {k[len("module."):] if k.startswith("module.") else k: v for k, v in state.items()}
     want = {k for k in model.state_dict() if not k.endswith("num_batches_tracked")}
     missing, extra = want - set(state), set(state) - want
     if missing or extra:
