@@ -94,6 +94,23 @@ Phases, each printing one line with its own seconds:
    the port's profiler spans (towers, cost matrix, scaling loop, Schur
    product, Cholesky, rest); then ``make_gmw_predict`` at batch 8 and
    ``rescale_location`` on phase 8's objects, finite, timed.
+10. cli: the command line, ``dcd_tpu_torch.tools.train_dgde``, in-process on
+   a KITTI tree that ``write_kitti_tree`` writes under build/ (8 train and 16
+   val scenes of 6 cars at 1242x375). K1 fp32 at batch 1 (the eval's launch
+   shape) against its plain version at the 7 shapes, timed. 6 training
+   iterations at full width, ``--batch_size 2``: 16 launches each of
+   ``dcn_fwd_f32``, ``dcn_bwd_pom`` and ``dcn_bwd_x`` per iteration, finite
+   losses, data and step time per iteration; 3 iterations, ``model_final``,
+   ``--resume``, 3 more: losses, parameters, BN buffers, AdamW state and step
+   bitwise those of the 6 straight. ``--eval --resume``: a txt per val id,
+   ``result.json``, 16 launches per image and the warm-up, images/s with the
+   warm-up excluded; images 0-1 at batch 1 with the kernel against the plain
+   DCN (same peaks, heads and rows at threshold 0 within PATH_TOL of scale).
+   The AP's host seconds with the native matcher and the Python loop, whose
+   results must be equal, on the eval's txt files and on the val labels fed
+   back as detections (score 1, locations moved by up to 1 mm), which must give
+   AP 100 everywhere. ``--generate_for_GMW --resume``: both JSONs read back by
+   the port's loaders with the train split's objects and the eval's rows.
 
 It prints the kernels' JSON line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -130,19 +147,24 @@ from dcd_tpu_torch.config import dgde_run_config
 from dcd_tpu_torch.data.edges import KITTI_IMAGE_SIZE, KITTI_P2, padded_edge_indices
 from dcd_tpu_torch.data.gen_data import (GenDataInferWriter, GenDataTrainWriter, load_gen_data_infer,
                                          load_gen_data_train, normalize_batch_kpts, normalize_kpts_2d)
-from dcd_tpu_torch.data.synthetic import make_scene
+from dcd_tpu_torch.data.kitti_dataset import KITTIDataset
+from dcd_tpu_torch.data.synthetic import make_scene, write_kitti_tree
 from dcd_tpu_torch.data.target_encoder import collate, encode_targets
 from dcd_tpu_torch.engine.gen import make_gen_step
 from dcd_tpu_torch.engine.gmw_train import (GMWConfig, create_gmw_state, loss_weights_for_epoch,
                                             make_gmw_predict, make_gmw_train_step, rescale_location)
 from dcd_tpu_torch.engine.infer import build_detector, format_kitti_lines, infer, postprocess
 from dcd_tpu_torch.engine.train import build_trainer, compute_gradients, train_step
+from dcd_tpu_torch.evaluation import native
+from dcd_tpu_torch.evaluation.kitti_eval import (evaluate_from_files, get_label_anno,
+                                                 get_official_eval_result)
 from dcd_tpu_torch.models.layers import DCN
 from dcd_tpu_torch.models.predictor import Converter_key2channel
 from dcd_tpu_torch.ops import dcn_cuda
 from dcd_tpu_torch.ops.dcn_cuda import DeformConv2dFunction
 from dcd_tpu_torch.ops.dcn import dcn_bwd_pom_plain, dcn_bwd_x_plain, deform_conv2d_clamped
 from dcd_tpu_torch.ops.nms import nms_hm, select_topk
+from dcd_tpu_torch.tools import train_dgde
 from dcd_tpu_torch.utils import cuda_build
 from dcd_tpu_torch.utils.weights import calibrate_batch_norm, realistic_offsets
 
@@ -1359,6 +1381,275 @@ def phase_gmw(gen_ctx):
                 predict_ms_all=predict_all)
 
 
+# the cli phase's tree: 8 train scenes and 16 val scenes of 6 cars at
+# 1242x375, under build/. The R40 protocol gives a perfect detector AP 100
+# only where at least 41 ground truths are valid at a difficulty; 8 of these
+# scenes hold 21 easy cars, 16 hold 43.
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+CLI_TRAIN_SEEDS, CLI_VAL_SEEDS = tuple(range(8)), tuple(range(8, 24))
+CLI_ITERS, CLI_RESUME_AT = 6, 3
+
+
+def k1_batch1():
+    """K1 at the 7 DCN shapes at batch 1, the eval's launch shape: fp32
+    against the plain version (<= FP32_TOL of scale), and its time through
+    the wrapper beside the plain version's and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for cin, cout, h, w, count in DCN_SHAPES:
+        a = dcn_inputs(cin, cout, h, w, gen, batch=1)
+        err, scale = check_kernel(dcn_cuda.deform_conv2d(*a, RADIUS), deform_conv2d_clamped(*a, RADIUS),
+                                  FP32_TOL, f"fp32 batch 1 {cin}->{cout}@{h}x{w}")
+        plain = lambda: deform_conv2d_clamped(*a, RADIUS)
+        kernel = lambda: dcn_cuda.deform_conv2d(*a, RADIUS)
+        times = timed_turns([("plain", plain), ("kernel", kernel), ("kernel", kernel), ("plain", plain)], 10)
+        b_ms, b_by = bound_ms(cin, cout, h, w, 1)
+        rows.append(dict(cin=cin, cout=cout, h=h, w=w, count=count, max_abs_err=err, scale=scale,
+                         ms=times["kernel"], plain_ms=times["plain"], bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def checkpoint_differences(a, b):
+    """Where two checkpoints of the port differ: parameters and BN buffers,
+    AdamW state, update count."""
+    differ = [k for k in b["model"] if not torch.equal(a["model"][k], b["model"][k])]
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    if a["step"] != b["step"] or sa.keys() != sb.keys():
+        differ.append(f"step {a['step']} vs {b['step']} / AdamW entries")
+    differ += [f"AdamW {i}.{k}" for i in sb for k in sb[i]
+               if i in sa and not torch.equal(sa[i][k], sb[i][k])]
+    return differ
+
+
+def near_perfect(gt, rng):
+    """Detections equal to the labels, score 1, locations moved by up to
+    1 mm: bit-identical rotated boxes hit the reference IoU kernel's
+    strict-test quirk (BEV and 3D overlap 0), as tests/test_eval.py notes.
+    (Its 0.1 mm still hit the quirk in one of six draws on this tree.)"""
+    dt = {k: v.copy() for k, v in gt.items()}
+    dt["location"] = dt["location"] + rng.uniform(-1e-3, 1e-3, dt["location"].shape)
+    dt["score"] = np.ones(len(dt["name"]))
+    return dt
+
+
+def ap_seconds(fn, turns=2):
+    """Each matcher's result and its median host seconds over ``turns`` turns
+    of native, Python loop."""
+    out, secs = {}, {True: [], False: []}
+    for _ in range(turns):
+        for use_native in (True, False):
+            t1 = time.perf_counter()
+            out[use_native] = fn(use_native)
+            secs[use_native].append(time.perf_counter() - t1)
+    (s_n, d_n), (s_p, d_p) = out[True], out[False]
+    if s_n != s_p or d_n.keys() != d_p.keys() or any(float(d_n[k]) != float(d_p[k]) for k in d_p):
+        raise AssertionError("the native matcher and the Python loop give other AP")
+    return {k: float(v) for k, v in d_n.items()}, {("native" if k else "python"): statistics.median(v)
+                                                   for k, v in secs.items()}
+
+
+def phase_cli():
+    """The command line, ``python -m dcd_tpu_torch.tools.train_dgde``, run
+    in-process on a KITTI tree written here: training with checkpoints and a
+    bitwise resume, ``--eval`` with the KITTI AP protocol, the ground truth
+    fed back as detections, ``--generate_for_GMW``."""
+    t0 = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    root = write_kitti_tree(str(CLI_DIR / "kitti"), train_seeds=CLI_TRAIN_SEEDS,
+                            val_seeds=CLI_VAL_SEEDS, num_objs=6)
+    val_ids = [f"{s:06d}" for s in CLI_VAL_SEEDS]
+    gt = [get_label_anno(os.path.join(root, "label_2", f"{i}.txt")) for i in val_ids]
+    n_val_cars = sum(len(a["name"]) for a in gt)
+    say("cli", time.perf_counter() - t0,
+        f"KITTI tree of {len(CLI_TRAIN_SEEDS)} train and {len(val_ids)} val scenes at "
+        f"{KITTI_IMAGE_SIZE[0]}x{KITTI_IMAGE_SIZE[1]} ({n_val_cars} val cars) written under build/")
+
+    t0 = time.perf_counter()
+    k1 = k1_batch1()
+    k1_ms = sum(r["ms"] * r["count"] for r in k1)
+    say("cli", time.perf_counter() - t0,
+        f"K1 fp32 at batch 1, the 7 shapes: max err {max(r['max_abs_err'] / r['scale'] for r in k1):.3g} "
+        f"of scale (tol {FP32_TOL}); per forward {k1_ms:.4f} ms (plain "
+        f"{sum(r['plain_ms'] * r['count'] for r in k1):.4f}, bound "
+        f"{sum(r['bound_ms'] * r['count'] for r in k1):.4f})")
+
+    def run(output, *flags):
+        return train_dgde.run(train_dgde.parse_args(
+            ["--data_root", root, "--output", str(CLI_DIR / output), "--batch_size", str(BATCH),
+             *flags]))
+
+    per_iter = []
+
+    def counted_step(trainer, batch):
+        before = [fwd_launches(), dcn_cuda.dcn_bwd_pom.launches, dcn_cuda.dcn_bwd_x.launches]
+        logs = train_step(trainer, batch)
+        torch.cuda.synchronize()
+        after = [fwd_launches(), dcn_cuda.dcn_bwd_pom.launches, dcn_cuda.dcn_bwd_x.launches]
+        per_iter.append([x - y for x, y in zip(after, before)])
+        return logs
+
+    here = os.getcwd()
+    os.chdir(CLI_DIR)  # --generate_for_GMW writes gen_data/ under the working directory
+    train_dgde.train_step = counted_step
+    try:
+        t0 = time.perf_counter()
+        dcn_cuda.reset_launch_counts()
+        its = run("straight", "--num_iters", str(CLI_ITERS))["iterations"]
+        launches = dict(zip(("dcn_fwd", "dcn_bwd_pom", "dcn_bwd_x"),
+                            (fwd_launches(), dcn_cuda.dcn_bwd_pom.launches, dcn_cuda.dcn_bwd_x.launches)))
+        if per_iter != [[16, 16, 16]] * CLI_ITERS:
+            raise AssertionError(f"launches per iteration (dcn_fwd, dcn_bwd_pom, dcn_bwd_x) {per_iter}")
+        bad = [(it["iteration"], k) for it in its for k, v in it["logs"].items() if not np.isfinite(v)]
+        if len(its) != CLI_ITERS or bad:
+            raise AssertionError(f"{len(its)} iterations, non-finite {bad}")
+        data_ms = [1e3 * it["data"] for it in its]
+        step_ms = [1e3 * (it["time"] - it["data"]) for it in its]
+        say("cli", time.perf_counter() - t0,
+            f"{CLI_ITERS} training iterations at batch {BATCH}: launches per iteration "
+            f"{per_iter[-1]} (dcn_fwd, dcn_bwd_pom, dcn_bwd_x); total_loss "
+            + ", ".join(f"{it['logs']['total_loss']:.4f}" for it in its)
+            + f"; iterations 1-{CLI_ITERS - 1}: data median {statistics.median(data_ms[1:]):.2f} ms, "
+            f"step median {statistics.median(step_ms[1:]):.2f} ms")
+
+        t0 = time.perf_counter()
+        run("resumed", "--num_iters", str(CLI_RESUME_AT))
+        resumed = run("resumed", "--num_iters", str(CLI_ITERS), "--resume")["iterations"]
+        if [it["iteration"] for it in resumed] != list(range(CLI_RESUME_AT, CLI_ITERS)) or \
+                [it["logs"] for it in resumed] != [it["logs"] for it in its[CLI_RESUME_AT:]]:
+            raise AssertionError("the resumed iterations differ from the straight run's")
+        if per_iter != [[16, 16, 16]] * (2 * CLI_ITERS):
+            raise AssertionError(f"launches per iteration of the resumed runs {per_iter[CLI_ITERS:]}")
+        load = lambda out: torch.load(CLI_DIR / out / "ckpt" / "model_final.pt", map_location="cpu",
+                                      weights_only=True)
+        differ = checkpoint_differences(load("resumed"), load("straight"))
+        if differ:
+            raise AssertionError(f"{CLI_RESUME_AT} + resume + {CLI_ITERS - CLI_RESUME_AT} iterations "
+                                 f"differ from {CLI_ITERS} straight in {differ[:5]}")
+        say("cli", time.perf_counter() - t0,
+            f"{CLI_RESUME_AT} iterations, model_final, --resume, {CLI_ITERS - CLI_RESUME_AT} more: "
+            f"losses, parameters, BN buffers, AdamW state and step bitwise those of {CLI_ITERS} straight")
+
+        t0 = time.perf_counter()
+        dcn_cuda.reset_launch_counts()
+        ev = run("resumed", "--eval", "--resume")
+        ev_ips = ev["images_per_s"]
+        eval_launches = dict(dcn_cuda.deform_conv2d.launches_by_kernel)
+        if eval_launches != {"dcn_fwd_f32": 16 * (len(val_ids) + 1), "dcn_fwd_bf16": 0}:
+            raise AssertionError(f"--eval launched {eval_launches}, not dcn_fwd_f32 16 times for each "
+                                 f"of {len(val_ids)} images and the warm-up")
+        txts = sorted(os.listdir(ev["out_dir"]))
+        with open(CLI_DIR / "resumed" / "inference" / "result.json") as f:
+            result_json = json.load(f)
+        if txts != [f"{i}.txt" for i in val_ids] or result_json != ev["ap"]:
+            raise AssertionError(f"--eval wrote {txts} and a result.json that differs from its AP")
+        n_rows = sum(1 for t in txts for line in open(os.path.join(ev["out_dir"], t)) if line.strip())
+        say("cli", time.perf_counter() - t0,
+            f"--eval --resume: {len(val_ids)} images one at a time, {ev['images_per_s']:.2f} images/s "
+            f"(the warm-up call excluded), {eval_launches['dcn_fwd_f32']} dcn_fwd_f32 launches, "
+            f"{n_rows} rows over the {ev['trainer'].cfg.test.detections_threshold} threshold, a txt "
+            f"per val id and result.json")
+
+        t0 = time.perf_counter()
+        model, cfg = ev["trainer"].model, ev["trainer"].cfg
+        # every row valid: no threshold, and the score without the depth
+        # confidence (which zeroes the seeded weights' scores)
+        cfg0 = dataclasses.replace(cfg, test=dataclasses.replace(
+            cfg.test, detections_threshold=0.0, uncertainty_as_confidence=False))
+        ds = KITTIDataset(cfg, root, is_train=False, augment=False)
+        errs, share, n_matched = {}, [], 0
+        for i in range(2):
+            s = ds.get_sample(i)
+            t = s.targets
+            args = (torch.from_numpy(s.image[None]).cuda(),
+                    torch.from_numpy(t["edge_indices"][None]).long().cuda(),
+                    torch.from_numpy(t["edge_len"][None]).long().cuda())
+            post = [torch.from_numpy(np.asarray(t[k][None], np.float32)).cuda()
+                    for k in ("calib_P_full", "pad_size", "image_size")]
+            with torch.no_grad():
+                k = model(*args, lazy_topk=True)
+                set_dcn_impl(model, "dense")
+                p = model(*args, lazy_topk=True)
+                set_dcn_impl(model, "auto")
+                rows_k, rows_p = postprocess(cfg0, k, *post), postprocess(cfg0, p, *post)
+            if not torch.equal(k["points_xy"], p["points_xy"]):
+                raise AssertionError(f"batch-1 forward of {s.img_id}: the kernel and the plain DCN "
+                                     "chose other peaks")
+            for key in ("cls", "scores", "reg_pois"):
+                errs[key] = max(errs.get(key, 0.0),
+                                float((k[key] - p[key]).abs().max()) / float(p[key].abs().max()))
+            hit, total = rows_matched(rows_k, rows_p, PATH_TOL)
+            share.append(hit)
+            n_matched += total
+        if max(errs.values()) > PATH_TOL or min(share) < 1.0 or not n_matched:
+            raise AssertionError(f"batch-1 forward kernel vs plain: rel errs {errs}, rows matched {share}")
+        say("cli", time.perf_counter() - t0,
+            f"images 0-1 at batch 1, kernel vs plain DCN: same 50 peaks, rel err {errs}, all "
+            f"{n_matched} rows (threshold 0, no depth confidence) within {PATH_TOL} of scale")
+
+        t0 = time.perf_counter()
+        native.library()  # the matcher's build, kept out of its time
+        label_dir = os.path.join(root, "label_2")
+        split = os.path.join(root, "ImageSets", "val.txt")
+        eval_ap, eval_secs = ap_seconds(lambda nat: evaluate_from_files(
+            label_dir, ev["out_dir"], split, current_class=["Car"], metric="R40", use_native=nat))
+        if eval_ap != ev["ap"]:
+            raise AssertionError("the AP of the eval's txt files differs from result.json")
+        rng = np.random.RandomState(0)
+        dt = [near_perfect(a, rng) for a in gt]
+        gt_ap, gt_secs = ap_seconds(lambda nat: get_official_eval_result(
+            gt, dt, ["Car"], metric="R40", use_native=nat))
+        if set(gt_ap.values()) != {100.0}:
+            raise AssertionError(f"the labels as detections give AP {gt_ap}, not 100")
+        say("cli", time.perf_counter() - t0,
+            f"AP host seconds, native matcher vs Python loop (equal AP): the eval's txt files "
+            f"{eval_secs['native']:.4f} vs {eval_secs['python']:.4f}; the {n_val_cars} val labels fed "
+            f"back as detections (score 1) {gt_secs['native']:.4f} vs {gt_secs['python']:.4f}, AP 100 "
+            f"for Car at every difficulty in bbox, BEV and 3D (R40, both overlap rows)")
+        del model, ev
+
+        t0 = time.perf_counter()
+        dcn_cuda.reset_launch_counts()
+        gen = run("resumed", "--generate_for_GMW", "--resume")
+        gen_launches = dcn_cuda.deform_conv2d.launches_by_kernel["dcn_fwd_f32"]
+        train_ds = KITTIDataset(cfg, root, is_train=True, augment=False)
+        n_batches = len(train_ds) // BATCH
+        n_obj = sum(int(train_ds.get_sample(i).targets["reg_mask"].sum())
+                    for i in range(n_batches * BATCH))
+        n_kpts = cfg.model.head.num_kpts
+        data = load_gen_data_train(gen["train_json"], n_kpts)
+        arrays, img_idx = load_gen_data_infer(gen["infer_json"], n_kpts)
+        with open(gen["infer_json"]) as f:
+            infer_ids = sorted(json.load(f))
+        if len(data["kpts_2d"]) != n_obj or not all(np.isfinite(v).all() for v in data.values()):
+            raise AssertionError(f"gen_data_train.json: {len(data['kpts_2d'])} objects, {n_obj} in the "
+                                 "train split")
+        if infer_ids != val_ids or len(img_idx) != n_rows or gen_launches != 16 * (n_batches + len(val_ids)):
+            raise AssertionError(f"gen_data_infer.json: images {infer_ids}, {len(img_idx)} objects of "
+                                 f"{n_rows} eval rows; {gen_launches} launches")
+        say("cli", time.perf_counter() - t0,
+            f"--generate_for_GMW --resume: gen_data/gen_data_train.json with the {n_obj} objects of "
+            f"the train split and gen_data/gen_data_infer.json with {len(val_ids)} images and the "
+            f"eval's {len(img_idx)} rows, read back by the port's loaders; {gen_launches} dcn_fwd_f32 "
+            f"launches")
+        del gen
+    finally:
+        train_dgde.train_step = train_step
+        os.chdir(here)
+    torch.cuda.empty_cache()
+    return dict(tree=dict(train=len(CLI_TRAIN_SEEDS), val=len(val_ids), val_cars=n_val_cars),
+                k1_batch1=k1, k1_batch1_ms=k1_ms, launches=launches, launches_per_iteration=per_iter,
+                iterations=[dict(iteration=it["iteration"], data_ms=d, step_ms=st,
+                                 total_loss=it["logs"]["total_loss"])
+                            for it, d, st in zip(its, data_ms, step_ms)],
+                data_ms_median=statistics.median(data_ms[1:]),
+                step_ms_median=statistics.median(step_ms[1:]),
+                eval_images=len(val_ids), eval_images_per_s=ev_ips, eval_launches=eval_launches,
+                eval_rows=n_rows, batch1_kernel_vs_plain_rel_err=errs, ap_eval=eval_ap,
+                ap_seconds_eval=eval_secs, ap_seconds_labels=gt_secs, ap_labels=gt_ap,
+                gen_train_objects=n_obj, gen_infer_objects=len(img_idx), gen_launches=gen_launches)
+
+
 BWD_KERNELS = ("bwd_pom_kernel", "bwd_weight_kernel", "bwd_x_kernel")
 
 
@@ -1425,6 +1716,9 @@ def main():
     del ctx
     torch.cuda.empty_cache()
     gmw = phase_gmw(gen_ctx)
+    del gen_ctx
+    torch.cuda.empty_cache()
+    cli = phase_cli()
 
     def total(key):
         return sum(r[key] * r["count"] for r in shapes)
@@ -1436,6 +1730,8 @@ def main():
         "route": "cuda",
         "source": "dcd_tpu_torch/csrc/dcn_fwd.cu",
         "replaces": "dcd_tpu/ops/dcn_pallas.py:370",
+        # the layout variants of the same TPU kernel (wc, C = 64 lane-packed)
+        "also_replaces": ["dcd_tpu/ops/dcn_pallas.py:102", "dcd_tpu/ops/dcn_pallas.py:225"],
         "launches": launches,
         "max_abs_err": max(r[f"{tag}_max_abs_err"] for r in shapes),
         "ms": total(f"{tag}_ms"),
@@ -1449,16 +1745,18 @@ def main():
                                   ("dcn_fwd_bf16", "bf16", main_bf16["launches"]["dcn_fwd_bf16"]))]
     # K2 and K3 per train step at batch 2: the sum over the 16 DCN blocks
     step_rows = [r for r in backward if r["batch"] == BATCH]
-    for name, key, replaces, cuda_kernels in (
-            ("dcn_bwd_pom", "pom", "dcd_tpu/ops/dcn_pallas.py:859",
+    for name, key, replaces, also, cuda_kernels in (
+            ("dcn_bwd_pom", "pom", "dcd_tpu/ops/dcn_pallas.py:859", "dcd_tpu/ops/dcn_pallas.py:746",
              ["bwd_pom_kernel", "bwd_weight_kernel", "bwd_weight_reduce_kernel"]),
-            ("dcn_bwd_x", "x", "dcd_tpu/ops/dcn_pallas.py:1246", ["bwd_x_kernel"])):
+            ("dcn_bwd_x", "x", "dcd_tpu/ops/dcn_pallas.py:1246", "dcd_tpu/ops/dcn_pallas.py:1163",
+             ["bwd_x_kernel"])):
         grads = ("grad_offset", "grad_mask", "grad_weight") if key == "pom" else ("grad_x",)
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "dcd_tpu_torch/csrc/dcn_bwd.cu",
             "replaces": replaces,
+            "also_replaces": [also],  # the wc layout variant
             "cuda_kernels": cuda_kernels,
             "launches": train["launches"][name],
             "max_abs_err": max(r["errors"][gname]["max_abs_err"] for r in backward for gname in grads),
@@ -1473,7 +1771,7 @@ def main():
     say("done", time.perf_counter() - t0, "all phases passed")
     details = {"card": smi, "build_seconds": built["seconds"], "tensor_core_instructions": mma,
                "shapes": shapes, "main_path": main_path, "main_path_bf16": main_bf16,
-               "backward": backward, "train": train, "gen": gen, "gmw": gmw}
+               "backward": backward, "train": train, "gen": gen, "gmw": gmw, "cli": cli}
     # every profiled kernel by name goes to a file; the line keeps the top ones
     DETAILS_FILE.parent.mkdir(parents=True, exist_ok=True)
     DETAILS_FILE.write_text(json.dumps(details, indent=1))

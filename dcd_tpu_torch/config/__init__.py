@@ -10,6 +10,7 @@ from .defaults import (
     TestConfig,
     default_config,
     dgde_run_config,
+    load_yaml_config,
 )
 
 __all__ = [
@@ -23,5 +24,6 @@ __all__ = [
     "TestConfig",
     "default_config",
     "dgde_run_config",
+    "load_yaml_config",
     "TYPE_ID_CONVERSION",
 ]

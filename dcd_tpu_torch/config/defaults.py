@@ -3,8 +3,9 @@
 A copy of the JAX package's config tree (``dcd_tpu/config/defaults.py``),
 same knobs and defaults, so that one experiment reads the same in both
 packages. The port copies it rather than importing it: the port imports
-nothing of ``dcd_tpu``. Left out are the JAX-only knobs (``remat``) and the
-YAML loader, which no path of the port uses yet.
+nothing of ``dcd_tpu``. Left out is the JAX-only knob ``remat``. YAML
+experiment files with the reference's section layout (``runs/DGDE.yaml``)
+load via :func:`load_yaml_config`, a copy of the JAX package's.
 
 ``model.backbone.dcn_impl`` takes the JAX package's values with their
 meanings: ``"auto"`` and ``"pallas"`` are the hand-written kernels (their
@@ -15,8 +16,9 @@ an ordinary conv that ignores the offsets (``models/layers.py::DCN``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+import dataclasses
+from dataclasses import dataclass, field, replace
+from typing import Any, Mapping, Optional, Tuple
 
 # Class-name -> class-id mapping (reference: DGDE/data/datasets/kitti.py:394-404)
 TYPE_ID_CONVERSION = {
@@ -383,4 +385,83 @@ def dgde_run_config() -> Config:
             metric=("R40",),
         ),
     )
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# YAML loading — accepts the reference's section/KEY layout.
+# ---------------------------------------------------------------------------
+
+_SECTION_MAP = {
+    "INPUT": ("input", InputConfig),
+    "DATASETS": ("datasets", DatasetsConfig),
+    "SOLVER": ("solver", SolverConfig),
+    "TEST": ("test", TestConfig),
+}
+
+
+def _coerce(value, current):
+    """Coerce a YAML value toward the type of the current field value.
+
+    YAML 1.1 parses ``1e-3`` (no dot) as a string; yacs coerced by target
+    type, so we do too.
+    """
+    if isinstance(value, list):
+        return tuple(_coerce(v, None) for v in value)
+    if isinstance(value, str) and isinstance(current, (int, float)) and not isinstance(current, bool):
+        try:
+            f = float(value)
+            return type(current)(f) if not isinstance(current, float) else f
+        except ValueError:
+            return value
+    if isinstance(current, float) and isinstance(value, int):
+        return float(value)
+    return value
+
+
+def _apply_section(dc, updates: Mapping[str, Any]):
+    """Apply {UPPER_KEY: value} updates onto a dataclass by lowercased name."""
+    fields = {f.name: f for f in dataclasses.fields(dc)}
+    kwargs = {}
+    nested = {}
+    for key, value in updates.items():
+        lname = key.lower()
+        if lname in fields:
+            kwargs[lname] = _coerce(value, getattr(dc, lname))
+        elif isinstance(value, Mapping):
+            nested[lname] = value
+        # unknown keys are ignored (reference carries many vestigial knobs)
+    out = replace(dc, **kwargs) if kwargs else dc
+    for lname, value in nested.items():
+        if lname in fields:
+            sub = getattr(out, lname)
+            out = replace(out, **{lname: _apply_section(sub, value)})
+    return out
+
+
+def load_yaml_config(path: str, base: Optional[Config] = None) -> Config:
+    """Load a reference-layout YAML experiment file over a base config."""
+    import yaml
+
+    with open(path, "r") as f:
+        raw = yaml.safe_load(f) or {}
+
+    cfg = base if base is not None else default_config()
+    for section, updates in raw.items():
+        if section == "MODEL":
+            model = cfg.model
+            model_updates = {k: v for k, v in updates.items() if not isinstance(v, Mapping)}
+            model = _apply_section(model, model_updates)
+            if "BACKBONE" in updates:
+                model = replace(model, backbone=_apply_section(model.backbone, updates["BACKBONE"]))
+            if "HEAD" in updates:
+                model = replace(model, head=_apply_section(model.head, updates["HEAD"]))
+            cfg = replace(cfg, model=model)
+        elif section in _SECTION_MAP:
+            attr, _ = _SECTION_MAP[section]
+            cfg = replace(cfg, **{attr: _apply_section(getattr(cfg, attr), updates)})
+        elif section == "OUTPUT_DIR":
+            cfg = replace(cfg, output_dir=updates)
+        elif section == "SEED":
+            cfg = replace(cfg, seed=updates)
     return cfg

@@ -8,6 +8,7 @@ The same seed gives the same scene in both packages.
 
 from __future__ import annotations
 
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -125,3 +126,79 @@ def make_scene(
         img[y0:y1, x0:x1] = 0.5 * img[y0:y1, x0:x1] + 0.5 * color
     img = np.clip(img + rng.normal(0, 4, img.shape), 0, 255).astype(np.uint8)
     return img, objs, calib
+
+
+def write_kitti_tree(
+    root: str,
+    train_seeds=(0, 1, 2, 3),
+    val_seeds=None,
+    num_objs: int = 4,
+    image_size: Tuple[int, int] = KITTI_IMAGE_SIZE,
+    extra_kpts_num: int = 63,
+) -> str:
+    """Write synthetic scenes as a real on-disk KITTI directory tree.
+
+    Produces ``root/training/{image_2,label_2,calib,ImageSets}`` plus the
+    ``kpts_ann/kpts_ann_{train,val}.json`` CAD-keypoint annotations — the
+    exact layout ``KITTIDataset`` (and the reference's
+    DGDE/data/datasets/kitti.py:37-76) reads, so the full CLI workflow can
+    run with zero real data. Returns the ``training`` directory path.
+
+    ``val_seeds`` defaults to ``train_seeds`` (the reference smoke setup:
+    train == val split)."""
+    import json
+
+    from PIL import Image
+
+    if val_seeds is None:
+        val_seeds = train_seeds
+    training = os.path.join(root, "training")
+    for sub in ("image_2", "label_2", "calib", "ImageSets"):
+        os.makedirs(os.path.join(training, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "kpts_ann"), exist_ok=True)
+
+    kpts_ann = {s: {} for s in ("train", "val")}
+    split_ids = {"train": [], "val": []}
+    all_seeds = sorted(set(train_seeds) | set(val_seeds))
+    for seed in all_seeds:
+        img, objs, calib = make_scene(
+            seed=seed, num_objs=num_objs, extra_kpts_num=extra_kpts_num,
+            image_size=image_size,
+        )
+        img_id = f"{seed:06d}"
+        Image.fromarray(img).save(os.path.join(training, "image_2", f"{img_id}.png"))
+        with open(os.path.join(training, "calib", f"{img_id}.txt"), "w") as f:
+            f.write("P2: " + " ".join(str(v) for v in calib.P.reshape(-1)) + "\n")
+            f.write("P3: " + " ".join(str(v) for v in calib.P.reshape(-1)) + "\n")
+            f.write("R0_rect: " + " ".join(str(v) for v in np.eye(3).reshape(-1)) + "\n")
+            f.write("Tr_velo_to_cam: " + " ".join(str(v) for v in np.eye(3, 4).reshape(-1)) + "\n")
+        anns = []
+        with open(os.path.join(training, "label_2", f"{img_id}.txt"), "w") as f:
+            for o in objs:
+                f.write(
+                    f"Car {o.truncation:.2f} {o.occlusion} {o.alpha:.2f} "
+                    f"{o.box2d[0]:.2f} {o.box2d[1]:.2f} {o.box2d[2]:.2f} {o.box2d[3]:.2f} "
+                    f"{o.h:.2f} {o.w:.2f} {o.l:.2f} "
+                    f"{o.t[0]:.2f} {o.t[1]:.2f} {o.t[2]:.2f} {o.ry:.2f}\n"
+                )
+                # annotation stores bottom-centered kpts (loader shifts by h/2)
+                kp = o.extra_kpts_3D.copy()
+                kp[:, 1] += o.h / 2
+                anns.append(
+                    {
+                        "dim": [round(o.h, 2), round(o.w, 2), round(o.l, 2)],
+                        "3dkeypoints": kp.reshape(-1).tolist(),
+                        "2dkeypoints": np.zeros((kp.shape[0], 3)).reshape(-1).tolist(),
+                        "find_pcl": 1,
+                    }
+                )
+        for split, seeds in (("train", train_seeds), ("val", val_seeds)):
+            if seed in seeds:
+                kpts_ann[split][str(int(img_id))] = anns
+                split_ids[split].append(img_id)
+    for split in ("train", "val"):
+        with open(os.path.join(training, "ImageSets", f"{split}.txt"), "w") as f:
+            f.write("\n".join(split_ids[split]))
+        with open(os.path.join(root, "kpts_ann", f"kpts_ann_{split}.json"), "w") as f:
+            json.dump(kpts_ann[split], f)
+    return training

@@ -9,11 +9,9 @@ keypoints 2d/3d, Calib_P, find_pcl, depth masks, dimensions, locations,
 rotys, alphas, multi-bin orientations, offset_3D, reg/trunc masks,
 pad_size, edge_indices/edge_len, ori_mask).
 
-Two differences from the JAX package: the heatmap splats go through the
+One difference from the JAX package: the heatmap splats go through the
 numpy functions of :mod:`.heatmap` (the JAX package's compiled splat, to
-which they are bit-compatible, is built for the machine it runs on), and an
-image larger than the input canvas raises ``NotImplementedError`` instead of
-being resized (a KITTI frame, 1242x375, fits the 1280x384 canvas).
+which they are bit-compatible, is built for the machine it runs on).
 """
 
 from __future__ import annotations

@@ -14,8 +14,9 @@ statistics once per microbatch, and one optimizer update follows, as the
 JAX package's ``lax.scan`` form does.
 
 Not ported yet: ``remat`` (the JAX package's ``jax.checkpoint`` of the
-forward), bf16 training (``cfg.model.fp16``) and loading the ImageNet
-DLA-34 pretrain; the trainer starts from seeded random weights.
+forward) and bf16 training (``cfg.model.fp16``). The trainer starts from
+seeded random weights, with the ImageNet DLA-34 trunk of
+``cfg.model.pretrain_path`` loaded over them when that names a local file.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from ..config import Config
 from ..models.detector import KeypointDetector
+from ..utils.checkpoint import load_torch_dla34
 from .infer import build_detector, resolve_device
 from .loss import compute_losses
 from .solver import Optimizer, global_norm
@@ -86,14 +88,19 @@ def build_trainer(cfg: Config, device: Union[str, torch.device, None] = None, se
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` when it is not set, and a caller
     that used cuBLAS before sets it first. (On sm_90 it names PyTorch's
     default workspace, 8 of 4 MiB, so nothing else changes.)
+
+    With ``cfg.model.pretrain`` and a ``pretrain_path``, the trunk is loaded
+    from that ImageNet DLA-34 ``.pth`` (:func:`..utils.checkpoint.load_torch_dla34`).
+    Without a path the trunk keeps its random weights: the JAX package would
+    try the reference's download URL, and the port downloads nothing.
     """
-    if cfg.model.pretrain_path is not None:
-        raise NotImplementedError("loading a pretrained trunk is not ported")
     if cfg.model.fp16:
         raise NotImplementedError("bf16 training is not ported; fp16 runs inference only")
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = resolve_device(device)
     model = build_detector(cfg, dev, seed).train()
+    if cfg.model.pretrain and cfg.model.pretrain_path is not None:
+        load_torch_dla34(model, cfg.model.pretrain_path)
     return Trainer(cfg, model, Optimizer(cfg, model, iters_per_epoch), dev)
 
 

@@ -119,6 +119,11 @@ def _imports(path: Path):
 def test_port_imports_no_jax_and_nothing_of_dcd_tpu():
     files = sorted((ROOT / "dcd_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {f"dcd_tpu_torch/{m}.py" for m in (
+        "tools/train_dgde", "evaluation/kitti_eval", "evaluation/rotate_iou", "evaluation/native",
+        "data/kitti_dataset", "data/multiscale", "utils/checkpoint", "utils/logger",
+        "utils/metrics", "utils/writer", "utils/timer")} <= names
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in BANNED, f"{path.relative_to(ROOT)} imports {mod}"
