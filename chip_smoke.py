@@ -111,6 +111,26 @@ Phases, each printing one line with its own seconds:
    back as detections (score 1, locations moved by up to 1 mm), which must give
    AP 100 everywhere. ``--generate_for_GMW --resume``: both JSONs read back by
    the port's loaders with the train split's objects and the eval's rows.
+   ``--finetune`` of that ``model_final`` for 2 iterations with the backbone
+   frozen through a YAML under build/: 16 launches of each kernel per
+   iteration, the frozen parameters bitwise the file's, every live one with a
+   gradient and every backbone BN statistic moved, the update count
+   restarted. ``--eval --resume --vis 2``: two panels of the frame and its
+   bird's-eye view. ``python -m dcd_tpu_torch.tools.demo --synthetic 3`` on
+   the phase's checkpoint directory: 16 ``dcn_fwd_f32`` launches, both PNGs.
+   ``--generate_for_GMW`` once more, for phase 11, with the detection
+   threshold at 0, no depth confidence and 4 rows per image through a YAML
+   (the seeded weights score under the shipped 0.2).
+11. gmw_cli: stage 2's command line, ``dcd_tpu_torch.tools.train_gmw``,
+   in-process on phase 10's JSONs at ``GMWConfig()``'s scale (73
+   keypoints, 2628 edges, batch 8) with ``--kitti_path`` on phase 10's
+   tree: 4 epochs, validation and checkpoints every 2 (``model_best``,
+   ``checkpoint_epoch_N``, ``checkpoint_final``); the same run again,
+   losses and checkpoints bitwise equal; ``--evaluate --resume`` on the
+   card inside ``utils/profiling.py``'s ``trace_session`` and
+   ``StepTimer``, and on the host's CPU from the same checkpoint: the
+   refined locations within 1e-4 of scale. Step, epoch and predict times,
+   and the AP.
 
 It prints the kernels' JSON line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -164,8 +184,9 @@ from dcd_tpu_torch.ops import dcn_cuda
 from dcd_tpu_torch.ops.dcn_cuda import DeformConv2dFunction
 from dcd_tpu_torch.ops.dcn import dcn_bwd_pom_plain, dcn_bwd_x_plain, deform_conv2d_clamped
 from dcd_tpu_torch.ops.nms import nms_hm, select_topk
-from dcd_tpu_torch.tools import train_dgde
+from dcd_tpu_torch.tools import demo, train_dgde, train_gmw
 from dcd_tpu_torch.utils import cuda_build
+from dcd_tpu_torch.utils.profiling import TRACE_FILE, StepTimer, trace_session
 from dcd_tpu_torch.utils.weights import calibrate_batch_norm, realistic_offsets
 
 BATCH = 2
@@ -1388,6 +1409,9 @@ def phase_gmw(gen_ctx):
 CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
 CLI_TRAIN_SEEDS, CLI_VAL_SEEDS = tuple(range(8)), tuple(range(8, 24))
 CLI_ITERS, CLI_RESUME_AT = 6, 3
+FINETUNE_ITERS, FROZEN, N_VIS = 2, "backbone", 2
+# detections per val image in the gmw_cli phase's infer file (16 images)
+GMW_DETECTIONS = 4
 
 
 def k1_batch1():
@@ -1446,6 +1470,130 @@ def ap_seconds(fn, turns=2):
         raise AssertionError("the native matcher and the Python loop give other AP")
     return {k: float(v) for k, v in d_n.items()}, {("native" if k else "python"): statistics.median(v)
                                                    for k, v in secs.items()}
+
+
+def cli_finetune(run, per_iter):
+    """``--finetune`` of the phase's ``model_final`` for FINETUNE_ITERS
+    iterations with the backbone frozen through a YAML: the backbone's
+    parameters bitwise those of the file; every live parameter with a
+    gradient, and every backbone BN's running statistics, moved; the update
+    count restarted; K1, K2 and K3 16 times per iteration (the frozen
+    gradients are computed, as in the JAX package)."""
+    t0 = time.perf_counter()
+    (CLI_DIR / "finetune.yaml").write_text("MODEL:\n  FREEZE_NAMES: [backbone]\n")
+    source = CLI_DIR / "resumed" / "ckpt" / "model_final.pt"
+    first = len(per_iter)
+    dcn_cuda.reset_launch_counts()
+    out = run("finetune", "--config", str(CLI_DIR / "finetune.yaml"), "--num_iters",
+              str(FINETUNE_ITERS), "--finetune", str(source))
+    launches = dict(zip(("dcn_fwd", "dcn_bwd_pom", "dcn_bwd_x"),
+                        (fwd_launches(), dcn_cuda.dcn_bwd_pom.launches, dcn_cuda.dcn_bwd_x.launches)))
+    if per_iter[first:] != [[16, 16, 16]] * FINETUNE_ITERS or \
+            set(launches.values()) != {16 * FINETUNE_ITERS}:
+        raise AssertionError(f"--finetune launches per iteration {per_iter[first:]}, in all {launches}")
+    load = lambda path: torch.load(path, map_location="cpu", weights_only=True)
+    src, got = load(source), load(CLI_DIR / "finetune" / "ckpt" / "model_final.pt")
+    params = dict(out["trainer"].model.named_parameters())
+    frozen = [k for k in params if k.startswith("backbone.")]
+    live = [k for k in params if not k.startswith("backbone.")]
+    changed = lambda k: not torch.equal(got["model"][k], src["model"][k])
+    bn = [k for k in got["model"] if k.startswith("backbone.") and k.endswith(("running_mean", "running_var"))]
+    faults = dict(frozen_moved=[k for k in frozen if changed(k)],
+                  live_with_gradient_idle=[k for k in live if not changed(k) and bool(params[k].grad.any())],
+                  bn_idle=[k for k in bn if not changed(k)],
+                  steps=(src["step"], got["step"]), adamw_entries=len(got["optimizer"]["state"]))
+    bad = [(it["iteration"], k) for it in out["iterations"] for k, v in it["logs"].items() if not np.isfinite(v)]
+    if faults["frozen_moved"] or faults["live_with_gradient_idle"] or faults["bn_idle"] or bad or \
+            faults["steps"] != (CLI_ITERS, FINETUNE_ITERS) or faults["adamw_entries"] != len(live):
+        raise AssertionError(f"--finetune: {faults}, non-finite logs {bad}")
+    n_moved = sum(changed(k) for k in live)
+    step_ms = [1e3 * (it["time"] - it["data"]) for it in out["iterations"]]
+    say("cli", time.perf_counter() - t0,
+        f"--finetune {source.name} with {FROZEN} frozen through a YAML, {FINETUNE_ITERS} iterations: "
+        f"launches per iteration {per_iter[-1]} (dcn_fwd, dcn_bwd_pom, dcn_bwd_x); the {len(frozen)} "
+        f"frozen parameters bitwise the file's, {n_moved} of {len(live)} live ones moved (the rest "
+        f"without a gradient), all {len(bn)} backbone BN statistics moved, update count {src['step']} "
+        f"-> {got['step']}; step ms {', '.join(f'{m:.2f}' for m in step_ms)}")
+    return dict(launches=launches, launches_per_iteration=per_iter[first:], frozen=len(frozen),
+                live=len(live), live_moved=n_moved, bn_moved=len(bn), step_ms=step_ms,
+                total_loss=[it["logs"]["total_loss"] for it in out["iterations"]])
+
+
+def cli_vis(run, val_ids):
+    """``--eval --resume --vis N_VIS``: a panel per image for the first
+    N_VIS val images, the frame beside its square bird's-eye panel."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    dcn_cuda.reset_launch_counts()
+    ev = run("resumed", "--eval", "--resume", "--vis", str(N_VIS))
+    launches = dict(dcn_cuda.deform_conv2d.launches_by_kernel)
+    w, h = KITTI_IMAGE_SIZE
+    sizes = [Image.open(p).size for p in ev["vis"]]
+    names = [os.path.basename(p) for p in ev["vis"]]
+    if names != [f"{i}.png" for i in val_ids[:N_VIS]] or sizes != [(w + h, h)] * N_VIS or \
+            launches != {"dcn_fwd_f32": 16 * (len(val_ids) + 1), "dcn_fwd_bf16": 0}:
+        raise AssertionError(f"--vis {N_VIS} wrote {names} of sizes {sizes}; launches {launches}")
+    say("cli", time.perf_counter() - t0,
+        f"--eval --resume --vis {N_VIS}: {names} at {sizes[0][0]}x{sizes[0][1]} (frame and bird's-eye "
+        f"panel), {ev['images_per_s']:.2f} images/s, {launches['dcn_fwd_f32']} dcn_fwd_f32 launches")
+    return dict(files=names, size=sizes[0], launches=launches, images_per_s=ev["images_per_s"])
+
+
+def cli_demo():
+    """``python -m dcd_tpu_torch.tools.demo --synthetic 3`` on the phase's
+    checkpoint directory: 16 ``dcn_fwd_f32`` launches, finite rows, both
+    PNGs at their sizes."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    dcn_cuda.reset_launch_counts()
+    out = demo.run(demo.parse_args(["--synthetic", "3", "--ckpt", str(CLI_DIR / "resumed" / "ckpt"),
+                                    "--out", str(CLI_DIR / "demo.png"),
+                                    "--bev", str(CLI_DIR / "demo_bev.png")]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(dcn_cuda.deform_conv2d.launches_by_kernel)
+    sizes = [Image.open(p).size for p in out["written"]]
+    if launches != {"dcn_fwd_f32": 16, "dcn_fwd_bf16": 0} or not np.isfinite(out["dets"]).all() or \
+            sizes != [KITTI_IMAGE_SIZE, (640, 640)]:
+        raise AssertionError(f"demo: launches {launches}, PNG sizes {sizes}")
+    say("cli", seconds,
+        f"demo --synthetic 3 --ckpt resumed/ckpt: {launches['dcn_fwd_f32']} dcn_fwd_f32 launches, "
+        f"{int(out['valid'].sum())} rows over the {dgde_run_config().test.detections_threshold} "
+        f"threshold, demo.png {sizes[0]} and demo_bev.png {sizes[1]} written")
+    return dict(launches=launches, seconds=seconds, rows=int(out["valid"].sum()))
+
+
+def cli_gen_for_gmw(run, n_batches, n_val):
+    """``--generate_for_GMW --resume`` again, for the ``gmw_cli`` phase, with
+    the detection threshold at 0, the score without the depth confidence
+    and GMW_DETECTIONS rows per image through a YAML: the seeded weights
+    score under the shipped 0.2, and the infer file needs detections."""
+    t0 = time.perf_counter()
+    work = CLI_DIR / "gmw"
+    work.mkdir()
+    (work / "gen.yaml").write_text(
+        "TEST:\n  DETECTIONS_THRESHOLD: 0.0\n  UNCERTAINTY_AS_CONFIDENCE: false\n"
+        f"  DETECTIONS_PER_IMG: {GMW_DETECTIONS}\n")
+    here = os.getcwd()
+    os.chdir(work)  # gen_data/ goes under the working directory
+    try:
+        dcn_cuda.reset_launch_counts()
+        gen = run("resumed", "--config", str(work / "gen.yaml"), "--generate_for_GMW", "--resume")
+        launches = dcn_cuda.deform_conv2d.launches_by_kernel["dcn_fwd_f32"]
+    finally:
+        os.chdir(here)
+    arrays, img_idx = load_gen_data_infer(gen["infer_json"])
+    if len(img_idx) != GMW_DETECTIONS * n_val or launches != 16 * (n_batches + n_val) or \
+            not all(np.isfinite(v).all() for v in arrays.values()):
+        raise AssertionError(f"gen for the GMW command line: {len(img_idx)} objects, {launches} launches")
+    say("cli", time.perf_counter() - t0,
+        f"--generate_for_GMW --resume with threshold 0, no depth confidence and {GMW_DETECTIONS} rows "
+        f"per image (a YAML; the seeded weights score under 0.2): {len(img_idx)} objects in "
+        f"gmw/gen_data/gen_data_infer.json, {launches} dcn_fwd_f32 launches")
+    return dict(train=gen["train_json"], infer=gen["infer_json"], infer_objects=len(img_idx),
+                launches=launches)
 
 
 def phase_cli():
@@ -1633,12 +1781,17 @@ def phase_cli():
             f"eval's {len(img_idx)} rows, read back by the port's loaders; {gen_launches} dcn_fwd_f32 "
             f"launches")
         del gen
+        finetune = cli_finetune(run, per_iter)
+        vis = cli_vis(run, val_ids)
+        demo_run = cli_demo()
+        gmw_inputs = cli_gen_for_gmw(run, n_batches, len(val_ids))
     finally:
         train_dgde.train_step = train_step
         os.chdir(here)
     torch.cuda.empty_cache()
     return dict(tree=dict(train=len(CLI_TRAIN_SEEDS), val=len(val_ids), val_cars=n_val_cars),
-                k1_batch1=k1, k1_batch1_ms=k1_ms, launches=launches, launches_per_iteration=per_iter,
+                k1_batch1=k1, k1_batch1_ms=k1_ms, launches=launches,
+                launches_per_iteration=per_iter[:2 * CLI_ITERS],
                 iterations=[dict(iteration=it["iteration"], data_ms=d, step_ms=st,
                                  total_loss=it["logs"]["total_loss"])
                             for it, d, st in zip(its, data_ms, step_ms)],
@@ -1647,7 +1800,112 @@ def phase_cli():
                 eval_images=len(val_ids), eval_images_per_s=ev_ips, eval_launches=eval_launches,
                 eval_rows=n_rows, batch1_kernel_vs_plain_rel_err=errs, ap_eval=eval_ap,
                 ap_seconds_eval=eval_secs, ap_seconds_labels=gt_secs, ap_labels=gt_ap,
-                gen_train_objects=n_obj, gen_infer_objects=len(img_idx), gen_launches=gen_launches)
+                gen_train_objects=n_obj, gen_infer_objects=len(img_idx), gen_launches=gen_launches,
+                finetune=finetune, vis=vis, demo=demo_run, gmw_inputs=gmw_inputs)
+
+
+# the gmw_cli phase: GMWConfig()'s scale through the command line's flags
+GMW_CLI_EPOCHS, GMW_CLI_EVERY = 4, 2
+# refined locations, card against the host's CPU, of the largest
+# coordinate: phase 9 holds predict to the CPU at GMW_TOL
+GMW_CLI_TOL = GMW_TOL
+
+
+def phase_gmw_cli(inputs):
+    """Stage 2's command line, ``python -m dcd_tpu_torch.tools.train_gmw``,
+    in-process on the JSONs the cli phase wrote, at GMWConfig()'s scale
+    (73 keypoints, 2628 edges, batch 8, top-1500) with ``--kitti_path`` on
+    the cli phase's tree: GMW_CLI_EPOCHS epochs with validation and a
+    checkpoint every GMW_CLI_EVERY; the same run again, bitwise equal;
+    ``--evaluate --resume`` on the card (traced through
+    ``utils/profiling.py``) and on the host's CPU from the same
+    checkpoint, the refined locations within GMW_CLI_TOL of scale."""
+    t0 = time.perf_counter()
+    base = ["--train_data", inputs["train"], "--val_data", inputs["infer"],
+            "--kitti_path", str(CLI_DIR / "kitti"), "--epochs", str(GMW_CLI_EPOCHS),
+            "--val_every", str(GMW_CLI_EVERY), "--save_every", str(GMW_CLI_EVERY)]
+
+    def run(log_dir, *flags):
+        return train_gmw.run(train_gmw.parse_args([*base, "--log_dir", str(CLI_DIR / log_dir), *flags]))
+
+    a = run("gmw_a")
+    steps = [s for e in a["epochs"] for s in e["steps"]]
+    n_train = len(load_gen_data_train(inputs["train"])["kpts_2d"])
+    batch = GMWConfig().batch_size
+    names = sorted(p.name for p in (CLI_DIR / "gmw_a" / "ckpt").glob("*.pt"))
+    want = sorted([f"checkpoint_epoch_{e}.pt" for e in range(GMW_CLI_EVERY, GMW_CLI_EPOCHS + 1, GMW_CLI_EVERY)]
+                  + ["checkpoint_final.pt", "model_best.pt"])
+    validated = [e["epoch"] for e in a["epochs"] if "validation" in e]
+    bad = [k for s in steps for k, v in s.items() if not np.isfinite(v)]
+    if len(steps) != GMW_CLI_EPOCHS * (n_train // batch) or bad or names != want or \
+            validated != list(range(GMW_CLI_EVERY, GMW_CLI_EPOCHS + 1, GMW_CLI_EVERY)) or \
+            a["best_epoch"] is None or not np.isfinite(a["final"]["depths"]).all():
+        raise AssertionError(f"train_gmw: {len(steps)} steps, non-finite {bad[:5]}, checkpoints {names}, "
+                             f"validated at {validated}, best epoch {a['best_epoch']}")
+    step_ms = [1e3 * s["seconds"] for s in steps]
+    epoch_s = [e["seconds"] for e in a["epochs"]]
+    predict_ms = [1e3 * t for e in a["epochs"] if "validation" in e
+                  for t in e["validation"]["predict_seconds"]]
+    ap = a["final"]["ap"][train_gmw.AP_KEY]
+    last_losses = ", ".join(f"{e['steps'][-1]['loss']:.4f}" for e in a["epochs"])
+    say("gmw_cli", time.perf_counter() - t0,
+        f"train_gmw on {n_train} objects ({n_train // batch} steps/epoch at batch {batch}), "
+        f"{GMW_CLI_EPOCHS} epochs: loss {last_losses} (each epoch's last step); "
+        f"step median {statistics.median(step_ms[1:]):.2f} ms, epoch median "
+        f"{statistics.median(epoch_s[1:]):.3f} s, predict median {statistics.median(predict_ms):.2f} ms "
+        f"(batch {batch}, {len(a['final']['depths'])} objects); checkpoints {names}, best epoch "
+        f"{a['best_epoch']}; Car AP3D|R40 moderate {ap:.4f}")
+
+    t1 = time.perf_counter()
+    b = run("gmw_b")
+    load = lambda d, name: torch.load(CLI_DIR / d / "ckpt" / name, map_location="cpu", weights_only=True)
+    same_ckpts = all(not checkpoint_differences(ca, cb) and ca["epoch"] == cb["epoch"]
+                     for ca, cb in ((load("gmw_a", n), load("gmw_b", n)) for n in names))
+    same_logs = [{k: v for k, v in s.items() if k != "seconds"} for s in steps] == \
+        [{k: v for k, v in s.items() if k != "seconds"} for e in b["epochs"] for s in e["steps"]]
+    if not (same_ckpts and same_logs):
+        raise AssertionError(f"a second train_gmw run differs: checkpoints equal {same_ckpts}, "
+                             f"losses equal {same_logs}")
+    say("gmw_cli", time.perf_counter() - t1,
+        f"the same run again: losses and the {len(names)} checkpoints (weights, AdamW state, update "
+        f"count, epoch) bitwise equal")
+
+    t1 = time.perf_counter()
+    timer = StepTimer(warmup=0)
+    with trace_session(str(CLI_DIR / "gmw_trace")) as prof:
+        timer.start()
+        card = run("gmw_a", "--evaluate", "--resume")
+        timer.stop()
+    device_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)) / 1e3
+    trace_mb = (CLI_DIR / "gmw_trace" / TRACE_FILE).stat().st_size / 2 ** 20
+    shutil.copytree(CLI_DIR / "gmw_a" / "ckpt", CLI_DIR / "gmw_cpu" / "ckpt")
+    t2 = time.perf_counter()
+    cpu = run("gmw_cpu", "--evaluate", "--resume", "--device", "cpu")
+    cpu_s = time.perf_counter() - t2
+    keys = [(img, det) for img in sorted(card["final"]["refined"]) for det in sorted(card["final"]["refined"][img])]
+    got = np.array([card["final"]["refined"][i][d] for i, d in keys])
+    ref = np.array([cpu["final"]["refined"][i][d] for i, d in keys])
+    err = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+    if card["final"]["refined"].keys() != cpu["final"]["refined"].keys() or err > GMW_CLI_TOL or \
+            not device_ms or not np.isfinite(got).all():
+        raise AssertionError(f"--evaluate card vs CPU: refined locations {err:.3g} of scale (tol "
+                             f"{GMW_CLI_TOL}); device ms {device_ms}")
+    say("gmw_cli", time.perf_counter() - t1,
+        f"--evaluate --resume on the card {1e3 * timer.times[0]:.1f} ms ({device_ms:.2f} ms of kernels "
+        f"in its trace_session, trace.json {trace_mb:.1f} MiB) and on the CPU {1e3 * cpu_s:.1f} ms: "
+        f"the {len(keys)} refined locations within {err:.3g} of scale (tol {GMW_CLI_TOL}); AP "
+        f"{card['final']['ap'][train_gmw.AP_KEY]:.4f} and {cpu['final']['ap'][train_gmw.AP_KEY]:.4f}")
+    return dict(train_objects=n_train, infer_objects=len(keys), steps=len(steps), step_ms=step_ms,
+                step_ms_median=statistics.median(step_ms[1:]), epoch_s=epoch_s,
+                epoch_s_median=statistics.median(epoch_s[1:]), predict_ms=predict_ms,
+                predict_ms_median=statistics.median(predict_ms), checkpoints=names,
+                best_epoch=a["best_epoch"], metric_by_epoch={e["epoch"]: e["validation"]["metric"]
+                                                             for e in a["epochs"] if "validation" in e},
+                ap=a["final"]["ap"], repeat_bitwise=True, evaluate_card_ms=1e3 * timer.times[0],
+                evaluate_card_device_ms=device_ms, evaluate_cpu_ms=1e3 * cpu_s,
+                card_vs_cpu_rel_err=err, losses=[s["loss"] for s in steps])
 
 
 BWD_KERNELS = ("bwd_pom_kernel", "bwd_weight_kernel", "bwd_x_kernel")
@@ -1719,6 +1977,7 @@ def main():
     del gen_ctx
     torch.cuda.empty_cache()
     cli = phase_cli()
+    gmw_cli = phase_gmw_cli(cli["gmw_inputs"])
 
     def total(key):
         return sum(r[key] * r["count"] for r in shapes)
@@ -1771,7 +2030,8 @@ def main():
     say("done", time.perf_counter() - t0, "all phases passed")
     details = {"card": smi, "build_seconds": built["seconds"], "tensor_core_instructions": mma,
                "shapes": shapes, "main_path": main_path, "main_path_bf16": main_bf16,
-               "backward": backward, "train": train, "gen": gen, "gmw": gmw, "cli": cli}
+               "backward": backward, "train": train, "gen": gen, "gmw": gmw, "cli": cli,
+               "gmw_cli": gmw_cli}
     # every profiled kernel by name goes to a file; the line keeps the top ones
     DETAILS_FILE.parent.mkdir(parents=True, exist_ok=True)
     DETAILS_FILE.write_text(json.dumps(details, indent=1))

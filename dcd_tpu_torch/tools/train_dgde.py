@@ -6,18 +6,23 @@ loop with the warmup/decay LR, loss logging every 10 iterations, periodic
 checkpoints and ``model_final``; ``--eval`` (the test split one image at a
 time, KITTI txt files, the KITTI AP protocol, ``inference/result.json``);
 ``--generate_for_GMW`` (``gen_data/gen_data_{train,infer}.json`` under the
-working directory). It takes the same flags, and one more: ``--device``
-(``cuda`` unless asked for ``cpu``; with no card it raises).
+working directory); ``--finetune CKPT`` (the weights and BN buffers of CKPT,
+the update count from 0, no update of ``cfg.model.freeze_names``); ``--vis N``
+with ``--eval`` (``OUTPUT/vis/<id>.png`` for the first N images: the
+detections and the ground truth in the frame and in a bird's-eye panel). It
+takes the same flags, and one more: ``--device`` (``cuda`` unless asked for
+``cpu``; with no card it raises).
 
     python -m dcd_tpu_torch.tools.train_dgde --data_root KITTI/training --output logs
     python -m dcd_tpu_torch.tools.train_dgde --data_root ... --output logs --eval --resume
     python -m dcd_tpu_torch.tools.train_dgde --data_root ... --output logs --generate_for_GMW --resume
+    python -m dcd_tpu_torch.tools.train_dgde --config finetune.yaml --data_root ... --output ft \
+        --finetune logs/ckpt/model_final.pt
+    python -m dcd_tpu_torch.tools.train_dgde --data_root ... --output logs --eval --resume --vis 4
 
-Refused with ``NotImplementedError``: ``--finetune`` (freezing names through
-the optimizer is not ported), ``--vis`` (``utils/visualize.py`` is not
-ported) and the multi-host flags (``--coordinator``, ``--num_processes`` > 1,
-``--process_id`` > 0: distribution is not ported). An orbax checkpoint of the
-JAX package cannot be read (``--ckpt DIR`` raises).
+Refused with ``NotImplementedError``: the multi-host flags (``--coordinator``,
+``--num_processes`` > 1, ``--process_id`` > 0: distribution is not ported).
+An orbax checkpoint of the JAX package cannot be read (``--ckpt DIR`` raises).
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 from ..config import Config, dgde_run_config, load_yaml_config
 from ..data.gen_data import (GenDataInferWriter, GenDataTrainWriter, normalize_batch_kpts,
                              normalize_kpts_2d)
-from ..data.kitti_dataset import KITTIDataset, make_data_loader
+from ..data.kitti_dataset import KITTIDataset, _load_image, make_data_loader
 from ..data.target_encoder import EncodedSample, collate
 from ..engine.gen import make_gen_step
 from ..engine.infer import format_kitti_lines, infer
@@ -46,6 +51,7 @@ from ..utils.checkpoint import Checkpointer, load_torch_dgde
 from ..utils.logger import setup_logger
 from ..utils.metrics import MetricLogger
 from ..utils.timer import Timer
+from ..utils.visualize import gt_rows_from_objects, save_scene_visualization
 from ..utils.writer import MetricWriter
 
 LOGGER = "dcd_tpu_torch"
@@ -66,8 +72,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--pretrain", default=None, metavar="PTH",
                    help="ImageNet DLA-34 weights, a local .pth (reference dla_dcn.py:344-358)")
-    p.add_argument("--finetune", default=None, metavar="CKPT", help="not ported; raises")
-    p.add_argument("--vis", type=int, default=0, metavar="N", help="not ported; raises")
+    p.add_argument(
+        "--finetune", default=None, metavar="CKPT",
+        help="load model weights from a checkpoint of this port, reset the iteration "
+        "counter, and freeze cfg.model.freeze_names (reference check_point.py:98-114)",
+    )
+    p.add_argument(
+        "--vis", type=int, default=0, metavar="N",
+        help="with --eval: write debug panels (pred+GT wireframes, BEV) for the first N "
+        "images to OUTPUT/vis (reference visualize_infer.show_image_with_boxes)",
+    )
     p.add_argument(
         "--per_sample_calib", action="store_true",
         help="with --generate_for_GMW: normalize each sample's keypoints with its OWN "
@@ -83,11 +97,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    if args.finetune:
-        raise NotImplementedError("--finetune is not ported: freezing cfg.model.freeze_names "
-                                  "through the optimizer waits for a later slice")
-    if args.vis:
-        raise NotImplementedError("--vis is not ported: utils/visualize.py has no twin yet")
     if args.coordinator or args.num_processes != 1 or args.process_id != 0:
         raise NotImplementedError("the multi-host flags are not ported: the port runs one "
                                   "process on one card")
@@ -128,6 +137,12 @@ def run(args: argparse.Namespace) -> Dict:
     if args.resume and ckptr.has_checkpoint():
         ckptr.load(trainer)
         logger.info(f"resumed at step {trainer.optimizer.count}")
+    elif args.finetune:
+        # the weights and BN buffers only; the new trainer's update count (0)
+        # and AdamW state stay, and its optimizer leaves cfg.model.freeze_names
+        # out (reference Checkpointer.finetune, check_point.py:98-114)
+        ckptr.load(trainer, args.finetune, model_only=True)
+        logger.info(f"finetune from {args.finetune}; frozen: {list(cfg.model.freeze_names)}")
     elif args.ckpt and args.ckpt.endswith((".pth", ".pkl")):
         # a reference torch checkpoint: the full detector, weights only
         load_torch_dgde(trainer.model, args.ckpt)
@@ -193,10 +208,15 @@ def run_eval(cfg: Config, args: argparse.Namespace, model, logger) -> Dict:
     """Inference over the test split one image at a time into
     ``OUTPUT/inference/data/<id>.txt``, then the KITTI AP protocol on those
     files and ``OUTPUT/inference/result.json``. A first call is made and
-    kept out of the timer (builds and first launches)."""
+    kept out of the timer (builds and first launches). With ``--vis N`` the
+    first N images' panels go to ``OUTPUT/vis/<id>.png``, outside the timer."""
     ds = KITTIDataset(cfg, args.data_root, is_train=False, augment=False)
     out_dir = os.path.join(cfg.output_dir, "inference", "data")
     os.makedirs(out_dir, exist_ok=True)
+    vis_dir = os.path.join(cfg.output_dir, "vis")
+    vis_paths = []
+    if args.vis:
+        os.makedirs(vis_dir, exist_ok=True)
     model.eval()
     device = next(model.parameters()).device
     timer = Timer(device)
@@ -210,6 +230,14 @@ def run_eval(cfg: Config, args: argparse.Namespace, model, logger) -> Dict:
         lines = format_kitti_lines(out["dets"][0], out["valid"][0])
         with open(os.path.join(out_dir, f"{s.img_id}.txt"), "w") as f:
             f.write("\n".join(lines) + ("\n" if lines else ""))
+        if len(vis_paths) < args.vis:
+            # detections are in original-image coordinates, so draw on the
+            # raw (unpadded) frame; no heatmap, as the JAX command line
+            vis_paths.append(os.path.join(vis_dir, f"{s.img_id}.png"))
+            save_scene_visualization(
+                vis_paths[-1], _load_image(os.path.join(ds.image_dir, f"{s.img_id}.png")),
+                out["dets"][0], out["valid"][0], s.calib,
+                gt_rows=gt_rows_from_objects(ds._load_objects(s.img_id) or []))
     images_per_s = 1.0 / max(timer.average_time, 1e-9)
     logger.info(f"inference: {images_per_s:.1f} img/s")
     t0 = time.perf_counter()
@@ -226,7 +254,7 @@ def run_eval(cfg: Config, args: argparse.Namespace, model, logger) -> Dict:
     with open(os.path.join(cfg.output_dir, "inference", "result.json"), "w") as f:
         json.dump(ap, f, indent=1)
     return dict(images=len(ds), images_per_s=images_per_s, seconds_per_image=timer.average_time,
-                ap=ap, result=result, ap_seconds=ap_seconds, out_dir=out_dir)
+                ap=ap, result=result, ap_seconds=ap_seconds, out_dir=out_dir, vis=vis_paths)
 
 
 def generate_for_gmw(cfg: Config, args: argparse.Namespace, model, logger) -> Dict:

@@ -8,6 +8,9 @@ checkpointer (``dcd_tpu/utils/checkpoint.py:24-112``; the reference's
 same names: ``model_checkpoint_N``, ``model_final`` and the ``last_checkpoint``
 tag file that ``--resume`` reads. Restored into a trainer built from the same
 config, the next steps are bitwise those the saved trainer would have taken.
+The GMW command line saves its model, AdamW state, update count and epoch
+the same way (:meth:`Checkpointer.save_gmw`), under the JAX GMW command
+line's names (``checkpoint_epoch_N``, ``model_best``, ``checkpoint_final``).
 
 :func:`load_torch_dgde` reads a reference DGDE ``.pth``: the port's state
 dict already has the reference's names and layout (the DCN offset convs
@@ -32,8 +35,8 @@ TRUNK = "backbone.base."
 
 
 class Checkpointer:
-    """Saves and restores a :class:`dcd_tpu_torch.engine.train.Trainer` under
-    ``save_dir``; at most ``max_to_keep`` ``model_checkpoint_*`` files are
+    """Saves and restores a :class:`dcd_tpu_torch.engine.train.Trainer`, or a
+    GMW and its state, under ``save_dir``; at most ``max_to_keep`` ``model_checkpoint_*`` files are
     kept (the oldest go first; ``model_final`` stays)."""
 
     def __init__(self, save_dir: str, max_to_keep: int = 10):
@@ -44,13 +47,8 @@ class Checkpointer:
     def _tag_file(self) -> str:
         return os.path.join(self.save_dir, "last_checkpoint")
 
-    def save(self, name: str, trainer) -> str:
+    def _write(self, name: str, tree: Dict) -> str:
         path = os.path.join(self.save_dir, name + SUFFIX)
-        tree = {
-            "step": trainer.optimizer.count,
-            "model": trainer.model.state_dict(),
-            "optimizer": trainer.optimizer.adamw.state_dict(),
-        }
         tmp = path + ".tmp"
         torch.save(tree, tmp)
         os.replace(tmp, path)
@@ -59,6 +57,26 @@ class Checkpointer:
         if name.startswith("model_checkpoint_"):
             self._prune()
         return path
+
+    def save(self, name: str, trainer) -> str:
+        return self._write(name, {
+            "step": trainer.optimizer.count,
+            "model": trainer.model.state_dict(),
+            "optimizer": trainer.optimizer.adamw.state_dict(),
+        })
+
+    def save_gmw(self, name: str, model: torch.nn.Module, state, epoch: int) -> str:
+        """A GMW model and its :class:`..engine.gmw_train.GMWState` at the end
+        of ``epoch``. The epoch and the update count are kept apart: the JAX
+        command line saves the epoch in ``step`` and keeps optax's update
+        count, which its LR schedule reads, inside ``opt_state``; the port's
+        ``GMWState.step`` is that count and the schedule's input."""
+        return self._write(name, {
+            "epoch": int(epoch),
+            "step": state.step,
+            "model": model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+        })
 
     def _prune(self) -> None:
         kept = sorted(Path(self.save_dir).glob(f"model_checkpoint_*{SUFFIX}"),
@@ -90,20 +108,47 @@ class Checkpointer:
                     "utils/weights.py::from_jax_variables where JAX runs)")
         raise FileNotFoundError(f"no checkpoint {path!r} (nor under {self.save_dir})")
 
+    def _read(self, path: Optional[str], device) -> Optional[Dict]:
+        path = self.last_checkpoint() if path is None else path
+        if path is None:
+            return None
+        return torch.load(self.resolve(path), map_location=device, weights_only=True)
+
     def load(self, trainer, path: Optional[str] = None, model_only: bool = False) -> bool:
         """Restore the last checkpoint (or ``path``) into ``trainer`` in
         place; returns False when there is none. ``model_only`` loads the
         weights and BN buffers and keeps the trainer's optimizer state and
         update count (the reference's finetune, check_point.py:98-114)."""
-        path = self.last_checkpoint() if path is None else self.resolve(path)
-        if path is None:
+        tree = self._read(path, trainer.device)
+        if tree is None:
             return False
-        tree = torch.load(path, map_location=trainer.device, weights_only=True)
         trainer.model.load_state_dict(tree["model"])
         if not model_only:
             trainer.optimizer.adamw.load_state_dict(tree["optimizer"])
             trainer.optimizer.count = int(tree["step"])
         return True
+
+    def load_model(self, model: torch.nn.Module, path: Optional[str] = None) -> bool:
+        """The weights and BN buffers of the last checkpoint (or ``path``)
+        into ``model``; returns False when there is none."""
+        tree = self._read(path, next(model.parameters()).device)
+        if tree is None:
+            return False
+        model.load_state_dict(tree["model"])
+        return True
+
+    def load_gmw(self, model: torch.nn.Module, state, path: Optional[str] = None) -> Optional[int]:
+        """Restore a :meth:`save_gmw` checkpoint (the last one unless
+        ``path``) into ``model`` and ``state`` in place: the weights, the
+        AdamW state and the update count. Returns the epoch it was saved at,
+        or None when there is no checkpoint."""
+        tree = self._read(path, state.device)
+        if tree is None:
+            return None
+        model.load_state_dict(tree["model"])
+        state.optimizer.load_state_dict(tree["optimizer"])
+        state.step = int(tree["step"])
+        return int(tree["epoch"])
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:

@@ -48,6 +48,7 @@ from dcd_tpu_torch.ops import dcn_cuda
 from dcd_tpu_torch.utils.weights import from_jax_variables, load_state
 from torch_port_common import (HEAD_CHANNELS, calibrated_variables, edge_inputs, small_configs,
                                with_dcn)
+from torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 2e-2
 B = 2

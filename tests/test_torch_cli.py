@@ -10,8 +10,8 @@ JAX's forward + ``postprocess`` + ``format_kitti_lines`` on the same weights
 (the port's state dict through the reference importer) and images, and JAX's
 ``evaluate_from_files`` on the port's txt files must give the port's
 ``result.json``. Also: the checkpoint round trip, the reference DGDE and
-ImageNet DLA-34 ``.pth`` loaders against JAX's importers, and the flags the
-twin refuses.
+ImageNet DLA-34 ``.pth`` loaders against JAX's importers, and the multi-host
+flags the twin refuses (``--finetune`` and ``--vis``: tests/test_torch_finetune.py).
 """
 
 import dataclasses
@@ -259,8 +259,7 @@ def test_cli_generate_for_gmw_writes_both_jsons(cli):
     assert all(np.isfinite(v).all() for v in arrays.values())
 
 
-@pytest.mark.parametrize("flags", [["--finetune", "x"], ["--vis", "2"],
-                                   ["--coordinator", "localhost:1234"], ["--num_processes", "2"]])
+@pytest.mark.parametrize("flags", [["--coordinator", "localhost:1234"], ["--num_processes", "2"]])
 def test_cli_refuses_unported_flags(flags):
     with pytest.raises(NotImplementedError):
         train_dgde.run(train_dgde.parse_args(["--device", "cpu", *flags]))

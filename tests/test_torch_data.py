@@ -22,6 +22,7 @@ from dcd_tpu.data import multiscale as jax_ms
 from dcd_tpu.data import synthetic as jax_synthetic
 from dcd_tpu_torch import config as port_config
 from dcd_tpu_torch.data import kitti_dataset, kitti_geometry, multiscale, synthetic
+from torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 TRAIN_SEEDS, VAL_SEEDS = (0, 1, 2, 3), (4, 5)

@@ -19,6 +19,7 @@ from dcd_tpu.ops import dcn_pallas
 from dcd_tpu.ops.dcn import deform_conv2d, deform_conv2d_dense
 from dcd_tpu_torch.ops import dcn_cuda
 from dcd_tpu_torch.ops.dcn import deform_conv2d_clamped, deform_conv2d_gather
+from torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 

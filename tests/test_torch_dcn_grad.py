@@ -37,6 +37,7 @@ from dcd_tpu_torch.models.layers import DCN
 from dcd_tpu_torch.ops import dcn_cuda
 from dcd_tpu_torch.ops.dcn import dcn_bwd_pom_plain, dcn_bwd_x_plain
 from dcd_tpu_torch.ops.dcn_cuda import DeformConv2dFunction
+from torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 NAMES = ("x", "offset", "mask", "weight", "bias")

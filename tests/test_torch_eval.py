@@ -20,6 +20,7 @@ from dcd_tpu_torch.evaluation.rotate_iou import rotate_iou_eval
 from ref_rotate_iou_oracle import rotate_iou_gpu_eval as oracle
 from test_eval import _make_annos, _near_perfect_dt
 from test_eval_vs_reference import _rand_scene
+from torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _empty_anno():

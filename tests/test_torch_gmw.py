@@ -43,6 +43,7 @@ from dcd_tpu_torch.models import gmw as port_gmw
 from dcd_tpu_torch.ops import geometry3d as port_geo
 from dcd_tpu_torch.ops import sinkhorn as port_sk
 from dcd_tpu_torch.utils.weights import from_jax_gmw_params, load_state
+from torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 TRAIN_JSON = "gen_data/gen_data_train.json"
 N_KPTS = 12

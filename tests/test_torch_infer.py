@@ -24,6 +24,7 @@ from dcd_tpu.models.predictor import Predictor as JaxPredictor
 from dcd_tpu_torch.data.edges import KITTI_P2, get_edge_indices, padded_edge_indices
 from dcd_tpu_torch.engine.infer import format_kitti_lines, postprocess
 from torch_port_common import HEAD_CHANNELS, edge_inputs, small_configs
+from torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 B = 2
 MODES = ["edges", "soft", "hard", "direct"]

@@ -36,6 +36,7 @@ from dcd_tpu_torch.engine.train import batch_to_device
 from dcd_tpu_torch.ops import codec as port_codec
 from dcd_tpu_torch.ops import losses as port_losses
 from dcd_tpu_torch.ops import nms as port_nms
+from torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 REL = 1e-5
 

@@ -25,6 +25,7 @@ from dcd_tpu_torch.models.predictor import Converter_key2channel
 from dcd_tpu_torch.ops.nms import nms_hm, select_point_of_interest, select_topk
 from dcd_tpu_torch.utils.weights import from_jax_variables, load_state
 from torch_port_common import HEIGHT, WIDTH, calibrated_variables, edge_inputs, small_configs
+from torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 REL = 1e-4
 B = 2

@@ -17,6 +17,7 @@ from dcd_tpu_torch.engine.infer import build_detector
 from dcd_tpu_torch.models.detector import KeypointDetector
 from dcd_tpu_torch.utils.weights import from_jax_variables, load_state, offset_conv_perm
 from torch_port_common import numpy_variables, small_configs
+from torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "dcd_tpu"}
@@ -123,7 +124,8 @@ def test_port_imports_no_jax_and_nothing_of_dcd_tpu():
     assert {f"dcd_tpu_torch/{m}.py" for m in (
         "tools/train_dgde", "evaluation/kitti_eval", "evaluation/rotate_iou", "evaluation/native",
         "data/kitti_dataset", "data/multiscale", "utils/checkpoint", "utils/logger",
-        "utils/metrics", "utils/writer", "utils/timer")} <= names
+        "utils/metrics", "utils/writer", "utils/timer", "tools/train_gmw", "tools/demo",
+        "utils/visualize", "utils/profiling")} <= names
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in BANNED, f"{path.relative_to(ROOT)} imports {mod}"

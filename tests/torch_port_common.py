@@ -1,16 +1,29 @@
 """Shared inputs of the tests that hold the PyTorch port against the JAX
 package: a small DGDE configuration in both packages, flax variables drawn
-with numpy, and the boundary-ring inputs."""
+with numpy, the boundary-ring inputs, and the one-thread fixture the port's
+test modules import. JAX and the JAX detector are imported where they are
+used: the modules that take only the fixture do not pay for them."""
 
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from dcd_tpu.config import dgde_run_config as jax_dgde_run_config
-from dcd_tpu.models.detector import KeypointDetector as JaxDetector
 from dcd_tpu_torch.config import dgde_run_config as torch_dgde_run_config
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the test module that imports this fixture: the
+    small shapes' many small ops gain nothing from more, and when the other
+    test processes keep the cores busy the pool's threads slow them several
+    times over (tests/test_torch_cli.py measured 346 s against 72 s)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 # narrow widths and a 64x128 input, as tests/test_model.py and
 # __graft_entry__._small_cfg cut the shipped configuration
@@ -56,6 +69,11 @@ def numpy_variables(jcfg, seed=0):
     He-normal kernels, non-trivial BN statistics, and offset convs with the
     statistics of trained checkpoints (bias std 0.45 px, kernel noise
     0.3/sqrt(fan_in), as bench._realistic_offsets injects)."""
+    import jax
+    import jax.numpy as jnp
+
+    from dcd_tpu.models.detector import KeypointDetector as JaxDetector
+
     # the parameter shapes do not depend on the DCN form; the offset-free
     # one traces in a fraction of the time
     shaper = JaxDetector(with_dcn(jcfg, "plain"))
