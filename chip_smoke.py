@@ -59,7 +59,15 @@ Phases, each printing one line with its own seconds:
    must equal ``dcn_bwd_x`` alone bitwise. Timed through the wrappers (5
    back-to-back calls per pair of CUDA events, turns of plain, kernel,
    kernel, plain) beside two bounds (``bwd_bound_ms``) and, as a yardstick
-   only, the contractions alone in cuBLAS.
+   only, the contractions alone in cuBLAS. The same on bf16 x, mask, weight
+   and cotangent (offsets fp32), as bf16 training gives them
+   (``dcn_bwd_pom_bf16``, ``dcn_bwd_x_bf16``): gradients in their inputs'
+   types against the plain versions (grad_offset <= 1e-4, the bf16 ones <=
+   BWD_BF16_TOL of scale), with NaN offsets too; the kernels' fp32 outputs
+   before the cast against the fp32 kernels on the widened values (<=
+   BF16_VS_FP32_TOL); bitwise repeatable; timed beside the bf16 bound and
+   the plain versions. K3 at radius 5, 7 and 9, fp32 and bf16, against its
+   plain version, and radius 10 refused for its shared memory.
 7. train path: ``build_trainer(dgde_run_config(), device="cuda")`` at full
    width and depth, 384x1280, on 2 port-encoded synthetic KITTI scenes of
    1242x375 with 6 cars each (``ims_per_batch`` cut from 8 to 2). Step 0
@@ -73,6 +81,20 @@ Phases, each printing one line with its own seconds:
    bitwise equal losses and parameters in 3 steps; the parity check again,
    at non-zero offsets; the step time (median of 5) without and with the
    deterministic mode (``Trainer.deterministic``), and one profiled step.
+7b. train_bf16: ``build_trainer`` with ``cfg.model.fp16`` at full width,
+   batch 2: the step's losses and gradients (all, and by part of the
+   network) against the fp32 step's from the same seeded weights with every
+   BN moved into its linear range (``linear_range_bn``; BF16_VS_FP32_*);
+   one step: 16 launches each of
+   ``dcn_fwd_bf16``, ``dcn_bwd_pom_bf16`` and ``dcn_bwd_x_bf16`` and none of
+   the fp32 entry points, finite losses and gradients; a second trainer from
+   the same seed bitwise equal; ``cfg.model.remat`` bitwise the same step,
+   with 32 forward launches and every ``num_batches_tracked`` at 1; after
+   the step, kernels against the plain DCN (BF16_STEP_*); the step time
+   (median of 5) with and without the deterministic mode, one profiled step.
+7c. oracle: ``tools/oracle_inject.py``'s sweep at 0 and 1 px on
+   ORACLE_SCENES held-out scenes with ``postprocess`` on the card and on the
+   CPU: equal AP rows and valid rows, the rows within ORACLE_TOL.
 8. gen: ``make_gen_step`` on the main path's detector and 2 encoded scenes
    of phase 7's kind: 16 ``dcn_fwd_f32`` launches, six finite fields, the
    kernel against the plain DCN (keypoints and yaw <= 1e-4 of scale, the
@@ -115,7 +137,9 @@ Phases, each printing one line with its own seconds:
    frozen through a YAML under build/: 16 launches of each kernel per
    iteration, the frozen parameters bitwise the file's, every live one with a
    gradient and every backbone BN statistic moved, the update count
-   restarted. ``--eval --resume --vis 2``: two panels of the frame and its
+   restarted. Training in bf16 through a YAML (``FP16: true``) for 2
+   iterations: 16 launches per iteration of each bf16 entry point, none of
+   fp32, finite losses. ``--eval --resume --vis 2``: two panels of the frame and its
    bird's-eye view. ``python -m dcd_tpu_torch.tools.demo --synthetic 3`` on
    the phase's checkpoint directory: 16 ``dcn_fwd_f32`` launches, both PNGs.
    ``--generate_for_GMW`` once more, for phase 11, with the detection
@@ -184,7 +208,7 @@ from dcd_tpu_torch.ops import dcn_cuda
 from dcd_tpu_torch.ops.dcn_cuda import DeformConv2dFunction
 from dcd_tpu_torch.ops.dcn import dcn_bwd_pom_plain, dcn_bwd_x_plain, deform_conv2d_clamped
 from dcd_tpu_torch.ops.nms import nms_hm, select_topk
-from dcd_tpu_torch.tools import demo, train_dgde, train_gmw
+from dcd_tpu_torch.tools import demo, oracle_inject, train_dgde, train_gmw
 from dcd_tpu_torch.utils import cuda_build
 from dcd_tpu_torch.utils.profiling import TRACE_FILE, StepTimer, trace_session
 from dcd_tpu_torch.utils.weights import calibrate_batch_norm, realistic_offsets
@@ -211,6 +235,12 @@ FP32_TOL, BF16_TOL, PATH_TOL = 1e-4, 2e-2, 1e-4
 # 96 % on the H100)
 MIN_MATCHED = 0.9
 BWD_TOL = 1e-4
+# bf16 inputs to K2 and K3: the kernels and the plain versions both compute
+# in fp32 and round each bf16 gradient once, so they part by at most one
+# bf16 rounding (2^-8 of a value) on either side; before that rounding, the
+# bf16 kernels and the fp32 kernels on the widened values sum the same fp32
+# numbers in the same order
+BWD_BF16_TOL, BF16_VS_FP32_TOL = 8e-3, 1e-5
 TRAIN_STEPS = 3
 # kernel-vs-plain train step: loss terms relative, gradients of each
 # tensor's largest magnitude; the pair-depth terms and the heads feeding the
@@ -225,6 +255,27 @@ PAIR_TERMS = ("pairs_kpts_depth_loss", "extra_all_MAE", "edges_MAE", "corner_los
 # as the issue's 1e-4; the location 1e-5, twenty times the H100's reading
 # (5.0e-7; the keypoints 2.9e-7 (2D) and 2.0e-6 (3D), the yaw 4.0e-6)
 GEN_TOL, GEN_LOC_TOL = 1e-4, 1e-5
+# bf16 train step (phase 7b): against the fp32 step from the same seeded
+# weights, and kernels against the plain DCN after one step (the RMS of the
+# loss terms' relative differences; the gradients as one vector, relative
+# Frobenius norm, also for each part of the network). Train-mode BN at the
+# seeded weights grows a flipped bf16 rounding through the network until
+# the bf16 step's gradients are unrelated to the fp32 step's (0.627 on the
+# H100, 1.02 on the CPU's small model), so the comparison with the fp32
+# step is made with every BN's gain cut to LINEAR_BN_GAIN and its shift at
+# LINEAR_BN_SHIFT (linear_range_bn), where the CPU's small model reads
+# 0.035 (tests/test_torch_train_bf16.py). The H100 reads loss RMS 1.72e-3,
+# gradients 0.0988 as one vector and by part 0.293 (trunk), 0.326
+# (dla_up), 0.307 (ida_up), 0.0559 (heads). Limits: three times the
+# readings for the losses and the whole vector; each part under 0.9, under
+# 1 so that a part whose gradients were all zero fails. Kernels against
+# plain 1.03e-3 and 0.0894 (the plain DCN's bf16 autograd rounds the
+# samples' gradient to bf16, the kernels keep it fp32)
+LINEAR_BN_GAIN, LINEAR_BN_SHIFT = 0.2, 1.0
+BF16_VS_FP32_LOSS_RMS, BF16_VS_FP32_GRAD_FRO, BF16_VS_FP32_PART_FRO = 5e-3, 0.3, 0.9
+BF16_STEP_LOSS_RMS, BF16_STEP_GRAD_FRO = 3e-3, 0.27
+# oracle rows, card against CPU, of each column's largest magnitude
+ORACLE_TOL = 1e-4
 GMW_TRAIN_JSON = Path(__file__).resolve().parent / "gen_data" / "gen_data_train.json"
 GMW_STEPS = 3
 # GMW card against CPU: P and the losses of one step relative, the step's
@@ -369,6 +420,18 @@ def timed_turns(fns, turns):
 def fwd_launches():
     """Launches of the forward kernel, in both precisions."""
     return sum(dcn_cuda.deform_conv2d.launches_by_kernel.values())
+
+
+def bwd_launches():
+    """Launches of K2 and of K3, each in both precisions."""
+    return (sum(dcn_cuda.dcn_bwd_pom.launches_by_kernel.values()),
+            sum(dcn_cuda.dcn_bwd_x.launches_by_kernel.values()))
+
+
+def launches_by_entry_point():
+    """Launches of every C entry point of the three DCN kernels."""
+    return {**dcn_cuda.deform_conv2d.launches_by_kernel, **dcn_cuda.dcn_bwd_pom.launches_by_kernel,
+            **dcn_cuda.dcn_bwd_x.launches_by_kernel}
 
 
 def check_kernel(got, want, tol, what):
@@ -792,10 +855,12 @@ def topk_times(cfg):
     return dict(shape=[B * C, H * W], select_topk_ms=t["sort"], torch_topk_ms=t["topk"])
 
 
-def bwd_bound_ms(cin, cout, h, w, batch):
-    """Least times of the two backward functions at this shape in fp32, both
-    ways: {"k2"|"k3": {"tf32x3": (ms, by), "fp32_fma": (ms, by)}}. Bytes:
-    each input read once, each output written once. Operations, counted
+def bwd_bound_ms(cin, cout, h, w, batch, dtype=torch.float32):
+    """Least times of the two backward functions at this shape, both ways:
+    {"k2"|"k3": {"tf32x3": (ms, by), "fp32_fma": (ms, by)}} in fp32, and
+    {"k2"|"k3": {"bf16": (ms, by)}} for bf16 inputs. Bytes: each input read
+    once, each output written once (offsets and grad_offset fp32, the rest in
+    the inputs' type). Operations, counted
     from dcn_bwd.cu: the contractions, 2 * 9 * Cin * Cout per pixel each
     (K2: the tap products U and grad_weight; K3: G times W), and the
     sampling outside them: 21 per pixel, tap and input channel for the
@@ -807,9 +872,22 @@ def bwd_bound_ms(cin, cout, h, w, batch):
     contractions on the tensor cores as 3xTF32, so the bound is "tf32x3":
     the contractions at a third of the TF32 rate plus the sampling at the
     fp32 rate. "fp32_fma" (every operation at 67 TFLOP/s, the bound of
-    fp32-FMA kernels) is kept beside it; a tensor-core kernel can beat it."""
+    fp32-FMA kernels) is kept beside it; a tensor-core kernel can beat it.
+    With bf16 inputs the least time takes every contraction at the dense
+    bf16 rate (989 TFLOP/s) and the sampling at the fp32 rate; the kernels
+    widen to fp32 and run 3xTF32, so this bound is the one a bf16 mma.sync or
+    wgmma design would chase."""
     p = batch * h * w
     contraction = 2 * p * 9 * cin * cout
+    if dtype == torch.bfloat16:
+        sides = {
+            "k2": (2 * (p * (cin + 9 + cout) + 9 * cin * cout) + 4 * p * 18
+                   + 4 * p * 18 + 2 * (p * 9 + 9 * cin * cout), 2 * contraction, (21 + 1) * p * 9 * cin),
+            "k3": (4 * p * 18 + 2 * (p * (9 + cout) + 9 * cin * cout + p * cin), contraction,
+                   8 * p * 9 * cout),
+        }
+        return {name: {"bf16": roofline_ms(nbytes, con, smp, BF16_FLOP_PER_S)}
+                for name, (nbytes, con, smp) in sides.items()}
     sides = {
         "k2": (4 * (p * (cin + 18 + 9 + cout) + 9 * cin * cout + p * (18 + 9) + 9 * cin * cout),
                2 * contraction, (21 + 1) * p * 9 * cin),
@@ -851,7 +929,7 @@ def phase_backward():
         for batch in BWD_BATCHES:
             rows.append(backward_shape(cin, cout, h, w, count, batch, gen))
             torch.cuda.empty_cache()
-    return rows
+    return rows, backward_radius()
 
 
 def backward_shape(cin, cout, h, w, count, batch, gen):
@@ -903,29 +981,39 @@ def backward_shape(cin, cout, h, w, count, batch, gen):
         if not torch.equal(a, b):
             raise AssertionError(f"{name} {tag}: two runs differ")
     del again, gx_again, gx_function
+    errs_bf16 = backward_bf16(x, off, mask, weight, g, nan_off, tag)
+    del nan_off
 
-    def k2():
-        dcn_cuda.dcn_bwd_pom(x, off, mask, weight, g, RADIUS)
-
-    def k3():
-        dcn_cuda.dcn_bwd_x(x, off, mask, weight, g, RADIUS)
-
-    def p2():
-        dcn_bwd_pom_plain(x, off, mask, weight, g, RADIUS)
-
-    def p3():
-        dcn_bwd_x_plain(x, off, mask, weight, g, RADIUS)
-
-    k2(), k3(), p2(), p3()
-    times = {"k2": [], "k3": [], "p2": [], "p3": []}
+    bf = [x.bfloat16(), off, mask.bfloat16(), weight.bfloat16(), g.bfloat16()]
+    fns = {"k2": lambda: dcn_cuda.dcn_bwd_pom(x, off, mask, weight, g, RADIUS),
+           "k3": lambda: dcn_cuda.dcn_bwd_x(x, off, mask, weight, g, RADIUS),
+           "p2": lambda: dcn_bwd_pom_plain(x, off, mask, weight, g, RADIUS),
+           "p3": lambda: dcn_bwd_x_plain(x, off, mask, weight, g, RADIUS),
+           "k2b": lambda: dcn_cuda.dcn_bwd_pom(*bf, RADIUS),
+           "k3b": lambda: dcn_cuda.dcn_bwd_x(*bf, RADIUS),
+           "p2b": lambda: dcn_bwd_pom_plain(*bf, RADIUS),
+           "p3b": lambda: dcn_bwd_x_plain(*bf, RADIUS)}
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
     for _ in range(3):
-        for name, fn in (("p2", p2), ("k2", k2), ("k2", k2), ("p2", p2),
-                         ("p3", p3), ("k3", k3), ("k3", k3), ("p3", p3)):
-            times[name].append(cuda_ms(fn))
-    del x, off, mask, weight, g, go, gm, gw, gx
+        for name in ("p2", "k2", "k2", "p2", "p3", "k3", "k3", "p3",
+                     "p2b", "k2b", "k2b", "p2b", "p3b", "k3b", "k3b", "p3b"):
+            times[name].append(cuda_ms(fns[name]))
+    del x, off, mask, weight, g, go, gm, gw, gx, bf, fns
     k2_cublas, k3_cublas = bwd_contractions_cublas_ms(cin, cout, h, w, batch, gen)
     bounds = bwd_bound_ms(cin, cout, h, w, batch)
+    bounds_bf16 = bwd_bound_ms(cin, cout, h, w, batch, torch.bfloat16)
     row = dict(cin=cin, cout=cout, h=h, w=w, batch=batch, count=count, errors=errs,
+               errors_bf16=errs_bf16,
+               pom_bf16_ms=statistics.median(times["k2b"]),
+               pom_bf16_plain_ms=statistics.median(times["p2b"]),
+               pom_bf16_bound_ms=bounds_bf16["k2"]["bf16"][0],
+               pom_bf16_bound_by=bounds_bf16["k2"]["bf16"][1],
+               x_bf16_ms=statistics.median(times["k3b"]),
+               x_bf16_plain_ms=statistics.median(times["p3b"]),
+               x_bf16_bound_ms=bounds_bf16["k3"]["bf16"][0],
+               x_bf16_bound_by=bounds_bf16["k3"]["bf16"][1],
                pom_ms=statistics.median(times["k2"]), pom_plain_ms=statistics.median(times["p2"]),
                pom_bound_ms=bounds["k2"]["tf32x3"][0], pom_bound_by=bounds["k2"]["tf32x3"][1],
                pom_bound_fma_ms=bounds["k2"]["fp32_fma"][0], pom_cublas_ms=k2_cublas,
@@ -941,8 +1029,89 @@ def backward_shape(cin, cout, h, w, count, batch, gen):
         f"contractions only, cuBLAS {k2_cublas:.4f}), "
         f"K3 {row['x_ms']:.4f} ms (plain {row['x_plain_ms']:.4f}, bound 3xTF32 {row['x_bound_ms']:.4f} "
         f"{row['x_bound_by']}, fp32 FMA {row['x_bound_fma_ms']:.4f}, contraction only, cuBLAS "
-        f"{k3_cublas:.4f})")
+        f"{k3_cublas:.4f}); bf16 inputs: "
+        + ", ".join(f"{k} {v['max_abs_err']:.3g} (vs fp32 kernels {v['vs_fp32_max_abs_err']:.3g}, "
+                    f"NaN {v['nan_max_abs_err']:.3g})" for k, v in errs_bf16.items())
+        + f"; K2 bf16 {row['pom_bf16_ms']:.4f} ms (plain {row['pom_bf16_plain_ms']:.4f}, bound "
+        f"{row['pom_bf16_bound_ms']:.4f} {row['pom_bf16_bound_by']}), K3 bf16 {row['x_bf16_ms']:.4f} ms "
+        f"(plain {row['x_bf16_plain_ms']:.4f}, bound {row['x_bf16_bound_ms']:.4f} "
+        f"{row['x_bf16_bound_by']})")
     return row
+
+
+def backward_bf16(x, off, mask, weight, g, nan_off, tag):
+    """K2 and K3 on bf16 x, mask, weight and cotangent (offsets fp32), as the
+    bf16 train step gives them: the gradients in their inputs' types, against
+    the plain versions (fp32 autograd on the widened values, then the cast;
+    grad_offset <= BWD_TOL, the bf16 ones <= BWD_BF16_TOL of scale: one bf16
+    rounding on either side), with NaN offsets too; the kernels' fp32
+    outputs, before the cast, against the fp32 kernels on the same values
+    widened to fp32 (<= BF16_VS_FP32_TOL; the bf16 kernels widen as they
+    load and sum in the fp32 kernels' order); two runs bitwise equal."""
+    xb, mb, wb, gb = x.bfloat16(), mask.bfloat16(), weight.bfloat16(), g.bfloat16()
+    names = ("grad_offset", "grad_mask", "grad_weight", "grad_x")
+    got = [*dcn_cuda.dcn_bwd_pom(xb, off, mb, wb, gb, RADIUS), dcn_cuda.dcn_bwd_x(xb, off, mb, wb, gb, RADIUS)]
+    again = [*dcn_cuda.dcn_bwd_pom(xb, off, mb, wb, gb, RADIUS), dcn_cuda.dcn_bwd_x(xb, off, mb, wb, gb, RADIUS)]
+    dtypes = [t.dtype for t in got]
+    if dtypes != [torch.float32] + [torch.bfloat16] * 3:
+        raise AssertionError(f"bf16 {tag}: gradient dtypes {dtypes}")
+    want = [*dcn_bwd_pom_plain(xb, off, mb, wb, gb, RADIUS), dcn_bwd_x_plain(xb, off, mb, wb, gb, RADIUS)]
+    raw = [*dcn_cuda.dcn_bwd_pom_fp32_out(xb, off, mb, wb, gb, RADIUS),
+           dcn_cuda.dcn_bwd_x_fp32_out(xb, off, mb, wb, gb, RADIUS)]
+    wide = [xb.float(), off, mb.float(), wb.float(), gb.float()]
+    ref = [*dcn_cuda.dcn_bwd_pom_fp32_out(*wide, RADIUS), dcn_cuda.dcn_bwd_x_fp32_out(*wide, RADIUS)]
+    nan_got = [*dcn_cuda.dcn_bwd_pom(xb, nan_off, mb, wb, gb, RADIUS),
+               dcn_cuda.dcn_bwd_x(xb, nan_off, mb, wb, gb, RADIUS)]
+    nan_want = [*dcn_bwd_pom_plain(xb, nan_off, mb, wb, gb, RADIUS),
+                dcn_bwd_x_plain(xb, nan_off, mb, wb, gb, RADIUS)]
+    errs = {}
+    for i, name in enumerate(names):
+        tol = BWD_TOL if name == "grad_offset" else BWD_BF16_TOL
+        err, scale = check_kernel(got[i], want[i], tol, f"bf16 {name} {tag}")
+        nan_err, _ = check_kernel(nan_got[i], nan_want[i], tol, f"bf16 NaN offsets {name} {tag}")
+        wide_err, _ = check_kernel(raw[i], ref[i], BF16_VS_FP32_TOL, f"bf16 vs fp32 kernels {name} {tag}")
+        if not torch.equal(got[i], again[i]):
+            raise AssertionError(f"bf16 {name} {tag}: two runs differ")
+        errs[name] = dict(max_abs_err=err, scale=scale, nan_max_abs_err=nan_err,
+                          vs_fp32_max_abs_err=wide_err)
+    return errs
+
+
+def backward_radius():
+    """K3 beyond the old radius limit of 4: at radius 5, 7 and 9 (the
+    largest), fp32 and bf16, against its plain version at the 128 -> 64
+    shape (batch 2, offsets of std radius / 2, some beyond the clip);
+    radius 10, whose halo needs more shared memory than a block may have,
+    raises naming it."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cin, cout, h, w = 128, 64, 48, 160
+    out = {}
+    for radius in (5, 7, dcn_cuda.BWD_X_MAX_RADIUS):
+        x, off, mask, weight, _ = dcn_inputs(cin, cout, h, w, gen)
+        off = off * (radius / 3.0)
+        g = torch.randn((BATCH, h, w, cout), generator=gen, device="cuda")
+        for dtype, tol in ((torch.float32, BWD_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+            args = (x.to(dtype), off, mask.to(dtype), weight.to(dtype), g.to(dtype))
+            err, scale = check_kernel(dcn_cuda.dcn_bwd_x(*args, radius), dcn_bwd_x_plain(*args, radius),
+                                      tol, f"K3 radius {radius} {dtype}")
+            out[f"r{radius}_{str(dtype)[6:]}"] = dict(max_abs_err=err, scale=scale,
+                                                       clipped_share=float((off.abs() > radius).float().mean()))
+    try:
+        x, off, mask, weight, _ = dcn_inputs(cin, cout, h, w, gen)
+        dcn_cuda.dcn_bwd_x(x, off, mask, weight, torch.zeros((BATCH, h, w, cout), device="cuda"), 10)
+    except ValueError as e:
+        if "shared memory" not in str(e):
+            raise
+        out["radius_10_error"] = str(e)
+    else:
+        raise AssertionError("K3 at radius 10 did not raise")
+    say("backward", time.perf_counter() - t0,
+        f"K3 at radius 5 and 7 (128->64@{BATCH}x{h}x{w}) against its plain version: "
+        + ", ".join(f"{k} {v['max_abs_err']:.3g} (max {v['scale']:.3g})" for k, v in out.items()
+                    if k.startswith("r") and isinstance(v, dict))
+        + f"; radius 10: {out['radius_10_error']}")
+    return out
 
 
 def scenes(cfg, n=BATCH):
@@ -1057,10 +1226,10 @@ def phase_train():
     dcn_cuda.reset_launch_counts()
     steps = []
     for i in range(TRAIN_STEPS):
-        before = [fwd_launches(), dcn_cuda.dcn_bwd_pom.launches, dcn_cuda.dcn_bwd_x.launches]
+        before = [fwd_launches(), *bwd_launches()]
         logs = train_step(trainer, batch)
         torch.cuda.synchronize()
-        after = [fwd_launches(), dcn_cuda.dcn_bwd_pom.launches, dcn_cuda.dcn_bwd_x.launches]
+        after = [fwd_launches(), *bwd_launches()]
         per_step = [a - b for a, b in zip(after, before)]
         logs = {k: float(v) for k, v in logs.items()}
         bad = [k for k, v in logs.items() if not np.isfinite(v)]
@@ -1072,6 +1241,9 @@ def phase_train():
         check_gradients(trainer.model, i)
         steps.append(dict(logs=logs, launches=per_step))
     launches = dict(zip(("dcn_fwd", "dcn_bwd_pom", "dcn_bwd_x"), after))
+    bf16_launches = {k: v for k, v in launches_by_entry_point().items() if k.endswith("bf16") and v}
+    if bf16_launches:
+        raise AssertionError(f"the fp32 train steps launched bf16 entry points: {bf16_launches}")
     say("train", time.perf_counter() - t0,
         f"{TRAIN_STEPS} steps, launches per step {steps[-1]['launches']} (dcn_fwd, dcn_bwd_pom, "
         f"dcn_bwd_x); total_loss " + ", ".join(f"{s['logs']['total_loss']:.4f}" for s in steps)
@@ -1114,6 +1286,174 @@ def phase_train():
                 step_ms=step_ms, step_ms_all=step_all, step_ms_nondeterministic=loose_ms,
                 step_ms_nondeterministic_all=loose_all, images_per_s=BATCH * 1e3 / step_ms,
                 objects=n_obj, profile=prof)
+
+
+def with_model(cfg, **model):
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model))
+
+
+def step_gaps(a, b):
+    """Relative differences of step ``a`` against step ``b`` (each the log
+    terms and the gradients by name): the RMS over the loss terms of their
+    relative differences, the largest of them, and the gradients as one
+    vector by relative Frobenius norm, all of them (``grad_fro``) and those
+    of each part of the network (``grad_fro_parts``: the trunk, the
+    up-sampling path, the heads)."""
+    (la, ga), (lb, gb) = a, b
+    rel = {k: abs(la[k] - v) / max(abs(v), 1e-30) for k, v in lb.items() if k != "grad_norm"}
+
+    def fro(keys):
+        va = torch.cat([ga[k].double().flatten() for k in keys])
+        vb = torch.cat([gb[k].double().flatten() for k in keys])
+        return float((va - vb).norm() / vb.norm())
+
+    part = lambda name: "heads" if name.startswith("heads.") else ".".join(name.split(".")[:2])
+    worst = max(rel, key=rel.get)
+    return dict(loss_rms=float(np.sqrt(np.mean(np.square(list(rel.values()))))),
+                loss_max=rel[worst], loss_max_term=worst, grad_fro=fro(sorted(gb)),
+                grad_fro_parts={p: fro(sorted(k for k in gb if part(k) == p))
+                                for p in sorted({part(k) for k in gb})})
+
+
+def linear_range_bn(model):
+    """Every BN's gain times LINEAR_BN_GAIN and its shift LINEAR_BN_SHIFT,
+    in place: most ReLUs then work in their linear range, where train-mode
+    BN does not grow a rounding difference layer by layer."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm) and m.affine:
+                m.weight.mul_(LINEAR_BN_GAIN)
+                m.bias.fill_(LINEAR_BN_SHIFT)
+
+
+def step_of(trainer, batch):
+    """compute_gradients of a deep copy: the log terms and the gradients."""
+    t = copy.deepcopy(trainer)
+    logs = compute_gradients(t, batch)
+    grads = {n: p.grad.detach().clone() for n, p in t.model.named_parameters() if p.grad is not None}
+    del t
+    return {k: float(v) for k, v in logs.items()}, grads
+
+
+def phase_train_bf16():
+    """bf16 training (``cfg.model.fp16``) at full width, batch 2: 16
+    launches per step of each bf16 entry point and none of the fp32 ones,
+    finite losses and gradients, a second trainer from the same seed bitwise
+    equal, the step against the fp32 step from the same weights and against
+    the plain DCN's bf16 step, the step time, and ``remat``: the same step
+    bitwise, with every BN's ``num_batches_tracked`` advanced by one."""
+    t0 = time.perf_counter()
+    cfg = with_model(dgde_run_config(), fp16=True)
+    trainer = build_trainer(cfg, device="cuda", seed=0)
+    batch = collate(scenes(cfg))
+    # the fp32 step and the bf16 step from the same seeded weights, their
+    # BNs moved into the range where the step is well conditioned
+    pair = [build_trainer(c, device="cuda", seed=0) for c in (cfg, dgde_run_config())]
+    for t in pair:
+        linear_range_bn(t.model)
+    vs_fp32 = step_gaps(*(step_of(t, batch) for t in pair))
+    del pair
+    if not (vs_fp32["loss_rms"] <= BF16_VS_FP32_LOSS_RMS and vs_fp32["grad_fro"] <= BF16_VS_FP32_GRAD_FRO
+            and max(vs_fp32["grad_fro_parts"].values()) <= BF16_VS_FP32_PART_FRO):
+        raise AssertionError(f"bf16 step against the fp32 step: {vs_fp32}")
+    dcn_cuda.reset_launch_counts()
+    logs = train_step(trainer, batch)
+    torch.cuda.synchronize()
+    launches = launches_by_entry_point()
+    want = {k: (16 if k.endswith("bf16") else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"bf16 step launches {launches}, not {want}")
+    logs = {k: float(v) for k, v in logs.items()}
+    bad = [k for k, v in logs.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"bf16 step: non-finite {bad}")
+    check_gradients(trainer.model, 0)
+    say("train_bf16", time.perf_counter() - t0,
+        f"bf16 step at batch {BATCH}: launches {launches}; total_loss {logs['total_loss']:.4f}, grad_norm "
+        f"{logs['grad_norm']:.4g}; against the fp32 step from the same weights: {vs_fp32}")
+
+    t0 = time.perf_counter()
+    twin = build_trainer(cfg, device="cuda", seed=0)
+    twin_logs = {k: float(v) for k, v in train_step(twin, batch).items()}
+    ours, theirs = trainer.model.state_dict(), twin.model.state_dict()
+    differ = [k for k in ours if not torch.equal(ours[k], theirs[k])]
+    if twin_logs != logs or differ:
+        raise AssertionError(f"two bf16 steps from one seed differ: {differ[:5]}")
+    del twin
+    # remat: the forward recomputed in the backward gives the same step, and
+    # BN's running statistics move once
+    remat = build_trainer(with_model(cfg, remat=True), device="cuda", seed=0)
+    dcn_cuda.reset_launch_counts()
+    remat_logs = {k: float(v) for k, v in train_step(remat, batch).items()}
+    torch.cuda.synchronize()
+    remat_launches = launches_by_entry_point()
+    theirs = remat.model.state_dict()
+    differ = [k for k in ours if not torch.equal(ours[k], theirs[k])]
+    counts = {int(v) for k, v in theirs.items() if k.endswith("num_batches_tracked")}
+    if remat_logs != logs or differ or counts != {1}:
+        raise AssertionError(f"remat step: losses equal {remat_logs == logs}, differing state "
+                             f"{differ[:5]}, num_batches_tracked {counts}")
+    if (remat_launches["dcn_fwd_bf16"], remat_launches["dcn_bwd_pom_bf16"],
+            remat_launches["dcn_bwd_x_bf16"]) != (32, 16, 16):
+        raise AssertionError(f"remat step launches {remat_launches}")
+    del remat, ours, theirs
+    say("train_bf16", time.perf_counter() - t0,
+        "a second trainer from seed 0: bitwise equal; remat: bitwise the same step, "
+        f"num_batches_tracked 1 everywhere, launches {remat_launches}")
+
+    t0 = time.perf_counter()
+    plain = copy.deepcopy(trainer)
+    set_dcn_impl(plain.model, "dense")
+    vs_plain = step_gaps(step_of(trainer, batch), step_of(plain, batch))
+    del plain
+    if not (vs_plain["loss_rms"] <= BF16_STEP_LOSS_RMS and vs_plain["grad_fro"] <= BF16_STEP_GRAD_FRO):
+        raise AssertionError(f"bf16 step, kernels against the plain DCN: {vs_plain}")
+    trainer.deterministic = False
+    loose_ms, loose_all = median_ms(lambda: train_step(trainer, batch))
+    trainer.deterministic = True
+    step_ms, step_all = median_ms(lambda: train_step(trainer, batch))
+    prof = device_breakdown(lambda: train_step(trainer, batch))
+    kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(prof["by_kind"].items()))
+    say("train_bf16", time.perf_counter() - t0,
+        f"after a step, kernels against the plain DCN: {vs_plain}; bf16 train step at batch {BATCH}: "
+        f"median {step_ms:.2f} ms (without the deterministic mode {loose_ms:.2f} ms); profiled step: "
+        f"wall {prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms (busy "
+        f"{100 * prof['busy_share']:.1f}%): {kinds}")
+    return dict(launches=launches, remat_launches=remat_launches, logs=logs, vs_fp32=vs_fp32,
+                vs_plain=vs_plain, step_ms=step_ms, step_ms_all=step_all,
+                step_ms_nondeterministic=loose_ms, step_ms_nondeterministic_all=loose_all,
+                profile=prof)
+
+
+ORACLE_SCENES, ORACLE_NOISE = 4, (0.0, 1.0)
+
+
+def phase_oracle():
+    """The oracle sweep (``tools/oracle_inject.py``) at 0 and 1 px on a few
+    held-out scenes with ``postprocess`` on the card and on this machine's
+    CPU: the same AP rows, the same valid rows, and the rows within
+    ORACLE_TOL of each column's scale."""
+    t0 = time.perf_counter()
+    dets = {"cuda": [], "cpu": []}
+    rows = {dev: oracle_inject.run_sweep(ORACLE_NOISE, ORACLE_SCENES, device=dev, detections=dets[dev])
+            for dev in ("cuda", "cpu")}
+    if rows["cuda"] != rows["cpu"]:
+        raise AssertionError(f"oracle sweep: card {rows['cuda']} against CPU {rows['cpu']}")
+    err = 0.0
+    for (n1, i1, d1, v1), (n2, i2, d2, v2) in zip(dets["cuda"], dets["cpu"]):
+        if (n1, i1) != (n2, i2) or not np.array_equal(v1, v2):
+            raise AssertionError(f"oracle rows of {i1} at {n1} px: valid rows differ")
+        scale = np.abs(d2[v2]).max(0).clip(1e-6)
+        err = max(err, float((np.abs(d1[v1] - d2[v2]) / scale).max()))
+    if not err <= ORACLE_TOL:
+        raise AssertionError(f"oracle rows, card against CPU: {err} of a column's scale")
+    z = rows["cuda"][0]
+    if not z["ap_3d_07"] == z["ap_bbox"] > 0:
+        raise AssertionError(f"oracle at 0 px: 3D@0.7 {z['ap_3d_07']} against bbox {z['ap_bbox']}")
+    say("oracle", time.perf_counter() - t0,
+        f"{ORACLE_SCENES} scenes at {ORACLE_NOISE} px: card = CPU AP rows {rows['cuda']}; rows within "
+        f"{err:.3g} of each column's scale")
+    return dict(rows=rows["cuda"], rows_card_vs_cpu=err)
 
 
 def phase_gen(ctx):
@@ -1487,7 +1827,7 @@ def cli_finetune(run, per_iter):
     out = run("finetune", "--config", str(CLI_DIR / "finetune.yaml"), "--num_iters",
               str(FINETUNE_ITERS), "--finetune", str(source))
     launches = dict(zip(("dcn_fwd", "dcn_bwd_pom", "dcn_bwd_x"),
-                        (fwd_launches(), dcn_cuda.dcn_bwd_pom.launches, dcn_cuda.dcn_bwd_x.launches)))
+                        (fwd_launches(), *bwd_launches())))
     if per_iter[first:] != [[16, 16, 16]] * FINETUNE_ITERS or \
             set(launches.values()) != {16 * FINETUNE_ITERS}:
         raise AssertionError(f"--finetune launches per iteration {per_iter[first:]}, in all {launches}")
@@ -1517,6 +1857,31 @@ def cli_finetune(run, per_iter):
     return dict(launches=launches, launches_per_iteration=per_iter[first:], frozen=len(frozen),
                 live=len(live), live_moved=n_moved, bn_moved=len(bn), step_ms=step_ms,
                 total_loss=[it["logs"]["total_loss"] for it in out["iterations"]])
+
+
+def cli_bf16(run, per_iter):
+    """The command line training in bf16 through a YAML (``MODEL: {FP16:
+    true}``), FINETUNE_ITERS iterations from scratch: 16 launches per
+    iteration of each bf16 entry point and none of the fp32 ones, a bf16
+    model, finite losses."""
+    t0 = time.perf_counter()
+    (CLI_DIR / "bf16.yaml").write_text("MODEL:\n  FP16: true\n")
+    first = len(per_iter)
+    dcn_cuda.reset_launch_counts()
+    out = run("bf16", "--config", str(CLI_DIR / "bf16.yaml"), "--num_iters", str(FINETUNE_ITERS))
+    launches = launches_by_entry_point()
+    want = {k: (16 * FINETUNE_ITERS if k.endswith("bf16") else 0) for k in launches}
+    bad = [(it["iteration"], k) for it in out["iterations"] for k, v in it["logs"].items() if not np.isfinite(v)]
+    if per_iter[first:] != [[16, 16, 16]] * FINETUNE_ITERS or launches != want or bad or \
+            out["trainer"].model.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 command line: launches {launches}, per iteration "
+                             f"{per_iter[first:]}, non-finite logs {bad}")
+    step_ms = [1e3 * (it["time"] - it["data"]) for it in out["iterations"]]
+    losses = [it["logs"]["total_loss"] for it in out["iterations"]]
+    say("cli", time.perf_counter() - t0,
+        f"training in bf16 through a YAML (FP16: true), {FINETUNE_ITERS} iterations: launches {launches}; "
+        f"total_loss {', '.join(f'{v:.4f}' for v in losses)}; step ms {', '.join(f'{m:.2f}' for m in step_ms)}")
+    return dict(launches=launches, step_ms=step_ms, total_loss=losses)
 
 
 def cli_vis(run, val_ids):
@@ -1630,10 +1995,10 @@ def phase_cli():
     per_iter = []
 
     def counted_step(trainer, batch):
-        before = [fwd_launches(), dcn_cuda.dcn_bwd_pom.launches, dcn_cuda.dcn_bwd_x.launches]
+        before = [fwd_launches(), *bwd_launches()]
         logs = train_step(trainer, batch)
         torch.cuda.synchronize()
-        after = [fwd_launches(), dcn_cuda.dcn_bwd_pom.launches, dcn_cuda.dcn_bwd_x.launches]
+        after = [fwd_launches(), *bwd_launches()]
         per_iter.append([x - y for x, y in zip(after, before)])
         return logs
 
@@ -1645,7 +2010,7 @@ def phase_cli():
         dcn_cuda.reset_launch_counts()
         its = run("straight", "--num_iters", str(CLI_ITERS))["iterations"]
         launches = dict(zip(("dcn_fwd", "dcn_bwd_pom", "dcn_bwd_x"),
-                            (fwd_launches(), dcn_cuda.dcn_bwd_pom.launches, dcn_cuda.dcn_bwd_x.launches)))
+                            (fwd_launches(), *bwd_launches())))
         if per_iter != [[16, 16, 16]] * CLI_ITERS:
             raise AssertionError(f"launches per iteration (dcn_fwd, dcn_bwd_pom, dcn_bwd_x) {per_iter}")
         bad = [(it["iteration"], k) for it in its for k, v in it["logs"].items() if not np.isfinite(v)]
@@ -1782,6 +2147,7 @@ def phase_cli():
             f"launches")
         del gen
         finetune = cli_finetune(run, per_iter)
+        bf16 = cli_bf16(run, per_iter)
         vis = cli_vis(run, val_ids)
         demo_run = cli_demo()
         gmw_inputs = cli_gen_for_gmw(run, n_batches, len(val_ids))
@@ -1801,7 +2167,7 @@ def phase_cli():
                 eval_rows=n_rows, batch1_kernel_vs_plain_rel_err=errs, ap_eval=eval_ap,
                 ap_seconds_eval=eval_secs, ap_seconds_labels=gt_secs, ap_labels=gt_ap,
                 gen_train_objects=n_obj, gen_infer_objects=len(img_idx), gen_launches=gen_launches,
-                finetune=finetune, vis=vis, demo=demo_run, gmw_inputs=gmw_inputs)
+                finetune=finetune, bf16=bf16, vis=vis, demo=demo_run, gmw_inputs=gmw_inputs)
 
 
 # the gmw_cli phase: GMWConfig()'s scale through the command line's flags
@@ -1926,15 +2292,23 @@ def tensor_core_instructions():
             m = re.search(r"dcn_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", name)
             key = f"{'bf16' if m[1] != 'f' else 'fp32'} {m[2]}x{m[3]}" if m else name[:60]
         else:
-            key = next((k for k in BWD_KERNELS if f"{len(k)}{k}E" in name), None)
-            if key is None:
+            # the backward kernels are templates on the loaded type (and K3 on
+            # the words of its hit masks)
+            kernel = next((k for k in BWD_KERNELS if f"{len(k)}{k}I" in name), None)
+            if kernel is None:
                 continue
+            m = re.search(rf"{len(kernel)}{kernel}I(13__nv_bfloat16|f)(?:Li(\d+)E)?E", name)
+            key = (f"{kernel} {'fp32' if m[1] == 'f' else 'bf16'}" + (f" w{m[2]}" if m[2] else "")
+                   if m else name[:60])
         counts[key] = len(re.findall(r"\bH(?:G)?MMA\b", section))
     bf16 = {k: v for k, v in counts.items() if k.startswith("bf16")}
     if not bf16 or not all(bf16.values()):
         raise AssertionError(f"a bf16 forward kernel has no HMMA/HGMMA in its SASS: {counts}")
-    if not all(counts.get(k) for k in BWD_KERNELS):
-        raise AssertionError(f"a backward kernel has no HMMA/HGMMA in its SASS: {counts}")
+    for kernel in BWD_KERNELS:
+        inst = {k: v for k, v in counts.items() if k.startswith(kernel + " ")}
+        # fp32 and bf16 (K3: with 1, 2 and 4 words of hits each)
+        if len(inst) != (6 if kernel == "bwd_x_kernel" else 2) or not all(inst.values()):
+            raise AssertionError(f"a backward kernel has no HMMA/HGMMA in its SASS: {counts}")
     return counts
 
 
@@ -1968,8 +2342,11 @@ def main():
     main_path, ctx = phase_main_path()
     main_bf16 = phase_main_path_bf16(ctx)
     torch.cuda.empty_cache()
-    backward = phase_backward()
+    backward, radius = phase_backward()
     train = phase_train()
+    train_bf16 = phase_train_bf16()
+    torch.cuda.empty_cache()
+    oracle = phase_oracle()
     gen, gen_ctx = phase_gen(ctx)
     del ctx
     torch.cuda.empty_cache()
@@ -2002,7 +2379,8 @@ def main():
         "library_ms": None,
     } for name, tag, launches in (("dcn_fwd", "fp32", main_path["launches"]),
                                   ("dcn_fwd_bf16", "bf16", main_bf16["launches"]["dcn_fwd_bf16"]))]
-    # K2 and K3 per train step at batch 2: the sum over the 16 DCN blocks
+    # K2 and K3 per train step at batch 2: the sum over the 16 DCN blocks;
+    # fp32 launches from the fp32 train phase, bf16 ones from the bf16 phase
     step_rows = [r for r in backward if r["batch"] == BATCH]
     for name, key, replaces, also, cuda_kernels in (
             ("dcn_bwd_pom", "pom", "dcd_tpu/ops/dcn_pallas.py:859", "dcd_tpu/ops/dcn_pallas.py:746",
@@ -2010,32 +2388,36 @@ def main():
             ("dcn_bwd_x", "x", "dcd_tpu/ops/dcn_pallas.py:1246", "dcd_tpu/ops/dcn_pallas.py:1163",
              ["bwd_x_kernel"])):
         grads = ("grad_offset", "grad_mask", "grad_weight") if key == "pom" else ("grad_x",)
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "dcd_tpu_torch/csrc/dcn_bwd.cu",
-            "replaces": replaces,
-            "also_replaces": [also],  # the wc layout variant
-            "cuda_kernels": cuda_kernels,
-            "launches": train["launches"][name],
-            "max_abs_err": max(r["errors"][gname]["max_abs_err"] for r in backward for gname in grads),
-            "ms": sum(r[f"{key}_ms"] * r["count"] for r in step_rows),
-            "plain_ms": sum(r[f"{key}_plain_ms"] * r["count"] for r in step_rows),
-            "bound_ms": sum(r[f"{key}_bound_ms"] * r["count"] for r in step_rows),
-            "bound_by": max(("bytes", "operations"),
-                            key=lambda b: sum(r[f"{key}_bound_ms"] * r["count"] for r in step_rows
-                                              if r[f"{key}_bound_by"] == b)),
-            "library_ms": None,
-        })
+        for tag, errors, launches in (("", "errors", train["launches"][name]),
+                                      ("_bf16", "errors_bf16",
+                                       train_bf16["launches"][f"{name}_bf16"])):
+            kernels.append({
+                "name": name + tag,
+                "route": "cuda",
+                "source": "dcd_tpu_torch/csrc/dcn_bwd.cu",
+                "replaces": replaces,
+                "also_replaces": [also],  # the wc layout variant
+                "cuda_kernels": cuda_kernels,
+                "launches": launches,
+                "max_abs_err": max(r[errors][gname]["max_abs_err"] for r in backward for gname in grads),
+                "ms": sum(r[f"{key}{tag}_ms"] * r["count"] for r in step_rows),
+                "plain_ms": sum(r[f"{key}{tag}_plain_ms"] * r["count"] for r in step_rows),
+                "bound_ms": sum(r[f"{key}{tag}_bound_ms"] * r["count"] for r in step_rows),
+                "bound_by": max(("bytes", "operations"),
+                                key=lambda b: sum(r[f"{key}{tag}_bound_ms"] * r["count"] for r in step_rows
+                                                  if r[f"{key}{tag}_bound_by"] == b)),
+                "library_ms": None,
+            })
     say("done", time.perf_counter() - t0, "all phases passed")
     details = {"card": smi, "build_seconds": built["seconds"], "tensor_core_instructions": mma,
                "shapes": shapes, "main_path": main_path, "main_path_bf16": main_bf16,
-               "backward": backward, "train": train, "gen": gen, "gmw": gmw, "cli": cli,
+               "backward": backward, "backward_radius": radius, "train": train,
+               "train_bf16": train_bf16, "oracle": oracle, "gen": gen, "gmw": gmw, "cli": cli,
                "gmw_cli": gmw_cli}
     # every profiled kernel by name goes to a file; the line keeps the top ones
     DETAILS_FILE.parent.mkdir(parents=True, exist_ok=True)
     DETAILS_FILE.write_text(json.dumps(details, indent=1))
-    for prof in (main_path["profile"], train["profile"], gen["profile"],
+    for prof in (main_path["profile"], train["profile"], train_bf16["profile"], gen["profile"],
                  *(t["profile"] for t in main_bf16["timing"].values())):
         prof.pop("kernels")
     print("[details] " + json.dumps(details))

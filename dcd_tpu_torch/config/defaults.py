@@ -3,7 +3,7 @@
 A copy of the JAX package's config tree (``dcd_tpu/config/defaults.py``),
 same knobs and defaults, so that one experiment reads the same in both
 packages. The port copies it rather than importing it: the port imports
-nothing of ``dcd_tpu``. Left out is the JAX-only knob ``remat``. YAML
+nothing of ``dcd_tpu``. YAML
 experiment files with the reference's section layout (``runs/DGDE.yaml``)
 load via :func:`load_yaml_config`, a copy of the JAX package's.
 
@@ -244,9 +244,13 @@ class ModelConfig:
     # MODEL.FREEZE_NAME, defaults.py:274 + check_point.py:78-96)
     freeze_names: Tuple[str, ...] = ()
     use_sync_bn: bool = False
+    # recompute the forward of each microbatch in the backward
+    # (torch.utils.checkpoint in engine/train.py; the JAX package's
+    # jax.checkpoint): less activation memory for a second forward
+    remat: bool = False
     reduce_loss_norm: bool = True
     norm: str = "BN"
-    fp16: bool = False  # bf16 activations, fp32 parameters (inference; training is fp32)
+    fp16: bool = False  # bf16 activations, fp32 parameters, in inference and training
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
     head: HeadConfig = field(default_factory=HeadConfig)
     batch_weight_factor: int = 18  # average obj num (defaults.py:276)

@@ -1,4 +1,5 @@
-// Modulated deformable convolution (DCNv2) backward for Hopper (sm_90a), fp32.
+// Modulated deformable convolution (DCNv2) backward for Hopper (sm_90a), with
+// fp32 or bf16 inputs (x, mask, weight, cotangent; offsets fp32 in both).
 //
 // Replaces two TPU kernels of dcd_tpu/ops/dcn_pallas.py, entered through the
 // custom VJP of deform_conv2d_pallas:
@@ -6,9 +7,10 @@
 //  * K2, _bwd_pom_kernel_cw (dcn_pallas.py:859, launched by _bwd_pom_cw
 //    :1013): grad_offset, grad_mask and grad_weight. Here: bwd_pom_kernel,
 //    bwd_weight_kernel and bwd_weight_reduce_kernel, launched by
-//    dcn_bwd_pom_f32.
+//    dcn_bwd_pom_f32 and dcn_bwd_pom_bf16.
 //  * K3, _bwd_x_kernel_cw (dcn_pallas.py:1246, launched by _bwd_x_cw
-//    :1352): grad_x. Here: bwd_x_kernel, launched by dcn_bwd_x_f32.
+//    :1352): grad_x. Here: bwd_x_kernel, launched by dcn_bwd_x_f32 and
+//    dcn_bwd_x_bf16.
 //
 // The TPU's width-on-sublanes variants _bwd_pom_kernel (:746) and
 // _bwd_x_kernel (:1163), selected by DCD_DCN_LAYOUT=wc, compute the same
@@ -84,11 +86,28 @@
 //    candidate order (count, scan, fill); per 64 output channels it gathers
 //    the rows of G_k = sum over the list of coef * mask * g(p) into shared
 //    memory as the A operand, with W_k^T by cp.async as B.
+//  Precision. Each kernel is a template on the element type T that it loads
+//  (float or __nv_bfloat16) for x, mask, W and g; offsets are fp32 in both.
+//  A bf16 value widens to fp32 exactly as it loads (a 16-bit shift), and
+//  from there everything is the fp32 kernel's: the operands in shared
+//  memory, the walk, ds/dy and ds/dx (fp32, as the TPU kernel keeps them,
+//  dcn_pallas.py:875-879), the 3xTF32 products and every sum, in the same
+//  order. So the bf16 kernels give bitwise what the fp32 kernels give on the
+//  inputs widened to fp32. (A bf16 value is exact in TF32, so two of the
+//  three TF32 passes of a bf16 x bf16 product add zeros: a bf16 mma.sync
+//  would do those products in one pass. That is later work.) The outputs
+//  are fp32; the wrapper casts grad_mask, grad_weight and grad_x to their
+//  inputs' type, as the JAX package's _bwd does outside its kernels.
 //  Requirements (checked by the wrapper): Cin and Cout multiples of 8; x, g
 //  and w 16-byte aligned, offsets 8-byte aligned (bwd_x_kernel reads them
-//  in pairs); B*H*W < 2^31. bwd_x_kernel also needs radius <= MAX_R: its
-//  halo and its 32-bit masks of candidate sources are sized for it.
+//  in pairs); B*H*W < 2^31. bwd_x_kernel sizes its halo, its lists and its
+//  masks of candidate sources from the radius (NW 32-bit words of mask per
+//  target quarter: 1 up to radius 4, 2 up to 7, 4 up to MAX_R = 9); the
+//  halo and the lists take 212 (2R + 11)^2 bytes of shared memory, which
+//  at radius 10 exceeds the 227 KB a block can have on this card.
 // wgmma, TMA, warp specialisation and a persistent schedule are later work.
+
+#include <cuda_bf16.h>
 
 #include "dcn_common.cuh"
 
@@ -116,10 +135,7 @@ constexpr int XT = 8;                        // target tile side
 constexpr int XM = XT * XT;                  // target pixels per block
 constexpr int XN = 64;                       // input channels per block
 constexpr int XO = 64;                       // output channels per gather round
-constexpr int MAX_R = 4;                     // largest radius the halo holds
-constexpr int HALO = XT + 2 * MAX_R + 3;     // halo side at MAX_R
-constexpr int HALO_MAX = HALO * HALO;        // source pixels
-constexpr int LIST_MAX = 4 * HALO_MAX;       // each source reaches 4 pixels
+constexpr int MAX_R = 9;                     // largest radius the masks of 4 words hold
 
 struct Corners {
   long long base[4];  // flat pixel index of each corner (0 when outside)
@@ -161,8 +177,29 @@ __device__ __forceinline__ Corners corners_at(const float* __restrict__ off, lon
   return c;
 }
 
-__device__ __forceinline__ float4 ldg4(const float* p) {
+// Loads of the input type, widened to fp32 (a bf16 value by a 16-bit shift,
+// exactly).
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+// four consecutive elements (16 bytes of fp32, 8 of bf16)
+__device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+// four consecutive elements into shared memory as fp32, zeros where !ok
+// (src must then still be a valid address): fp32 by cp.async (the caller
+// commits and waits), bf16 by a load, a widening and a store
+__device__ __forceinline__ void stage4(float* dst, const float* src, bool ok) {
+  cp_async16(dst, src, ok ? 16 : 0);
+}
+__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src, bool ok) {
+  *reinterpret_cast<float4*>(dst) = ok ? ld4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 __device__ __forceinline__ void fma4(float4& acc, float c, const float4& v) {
@@ -224,10 +261,11 @@ __host__ __device__ constexpr int pom_smem_bytes(int Cout) {
   return 4 * ((PM + PC) * pom_row(Cout) + PM * (PC + PAD)) + PM * (16 + 16 + 4);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-bwd_pom_kernel(const float* __restrict__ x, const float* __restrict__ off,
-               const float* __restrict__ mask, const float* __restrict__ g,
-               const float* __restrict__ w, float* __restrict__ go, float* __restrict__ gm,
+bwd_pom_kernel(const T* __restrict__ x, const float* __restrict__ off,
+               const T* __restrict__ mask, const T* __restrict__ g,
+               const T* __restrict__ w, float* __restrict__ go, float* __restrict__ gm,
                int B, int H, int W, int Cin, int Cout, float R) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int GS = pom_row(Cout);
@@ -250,7 +288,7 @@ bwd_pom_kernel(const float* __restrict__ x, const float* __restrict__ off,
     const int row = e / vpr, col = (e % vpr) * 4;
     const long long p = p0 + row;
     const bool ok = p < P && col < Cout;
-    cp_async16(sG + row * GS + col, ok ? g + p * Cout + col : g, ok ? 16 : 0);
+    stage4(sG + row * GS + col, ok ? g + p * Cout + col : g, ok);
   }
   cp_async_commit();
   if (tid < PM) {
@@ -262,7 +300,7 @@ bwd_pom_kernel(const float* __restrict__ x, const float* __restrict__ off,
       const Corners c = corners_at(off, p, k, H, W, R);
       idx = make_int4(c.ok[0] ? (int)c.base[0] : -1, c.ok[1] ? (int)c.base[1] : -1,
                       c.ok[2] ? (int)c.base[2] : -1, c.ok[3] ? (int)c.base[3] : -1);
-      wt = make_float4(c.ly, c.lx, mask[p * KT + k], 0.f);
+      wt = make_float4(c.ly, c.lx, ld1(mask + p * KT + k), 0.f);
       in = (c.in_y ? 1 : 0) | (c.in_x ? 2 : 0);
     }
     s_idx[tid] = idx;
@@ -285,8 +323,7 @@ bwd_pom_kernel(const float* __restrict__ x, const float* __restrict__ off,
       const int row = e / vpr, col = (e % vpr) * 4;
       const int c = c0 + row;
       const bool ok = c < Cin && col < Cout;
-      cp_async16(sW + row * GS + col, ok ? w + ((long long)k * Cin + c) * Cout + col : w,
-                 ok ? 16 : 0);
+      stage4(sW + row * GS + col, ok ? w + ((long long)k * Cin + c) * Cout + col : w, ok);
     }
     cp_async_commit();
     // this chunk's x corners, (y0, x0), (y0, x0 + 1), (y0 + 1, x0),
@@ -300,7 +337,7 @@ bwd_pom_kernel(const float* __restrict__ x, const float* __restrict__ off,
       const int ids[4] = {idx.x, idx.y, idx.z, idx.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        xv[j][q] = c < Cin && ids[q] >= 0 ? ldg4(x + (long long)ids[q] * Cin + c)
+        xv[j][q] = c < Cin && ids[q] >= 0 ? ld4(x + (long long)ids[q] * Cin + c)
                                           : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     cp_async_wait_all();
@@ -378,9 +415,10 @@ bwd_pom_kernel(const float* __restrict__ x, const float* __restrict__ off,
 // corners of the whole range come first, in one round; then per step of WP
 // pixels the next step's g rows (cp.async, two buffers) and x corners
 // (registers) are in flight while this step's MMAs run.
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ off,
-                  const float* __restrict__ mask, const float* __restrict__ g,
+bwd_weight_kernel(const T* __restrict__ x, const float* __restrict__ off,
+                  const T* __restrict__ mask, const T* __restrict__ g,
                   float* __restrict__ part, int B, int H, int W, int Cin, int Cout, float R,
                   int pix_per_split) {
   __shared__ __align__(16) float sMS[WP][WSTR];     // mask * s: [pixel][input channel]
@@ -401,7 +439,7 @@ bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ off,
   for (int i = tid; i < np; i += THREADS) {
     const long long p = pa + i;
     const Corners c = corners_at(off, p, k, H, W, R);
-    const float m = mask[p * KT + k];
+    const float m = ld1(mask + p * KT + k);
     const float cw[4] = {(1.f - c.ly) * (1.f - c.lx), (1.f - c.ly) * c.lx,
                          c.ly * (1.f - c.lx), c.ly * c.lx};
     s_idx[i] = make_int4((int)c.base[0], (int)c.base[1], (int)c.base[2], (int)c.base[3]);
@@ -417,7 +455,7 @@ bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ off,
       const int row = e >> 4, col = (e & 15) * 4;
       const int i = step * WP + row;
       const bool ok = i < np && o0 + col < Cout;
-      cp_async16(&sG[buf][row][col], ok ? g + (pa + i) * Cout + o0 + col : g, ok ? 16 : 0);
+      stage4(&sG[buf][row][col], ok ? g + (pa + i) * Cout + o0 + col : g, ok);
     }
     cp_async_commit();
   };
@@ -434,7 +472,7 @@ bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ off,
       const float cfs[4] = {cf.x, cf.y, cf.z, cf.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        xv[j][q] = cfs[q] != 0.f ? ldg4(x + (long long)ids[q] * Cin + c)
+        xv[j][q] = cfs[q] != 0.f ? ld4(x + (long long)ids[q] * Cin + c)
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   };
@@ -503,20 +541,26 @@ bwd_weight_reduce_kernel(const float* __restrict__ part, float* __restrict__ gw,
 
 // ---------------------------------------------------------------------------
 // grad_x. Grid (8 x 8 tiles of input pixels over B images, Cin / XN).
-// Dynamic shared memory: s_frac [9][HS * HS] and s_pos [9][HS * HS], the
-// halo's sources for every tap (x_smem_bytes).
+// Dynamic shared memory, sized by the radius (x_smem_bytes; HS the halo's
+// side): s_frac [9][HS * HS] and s_pos [9][HS * HS], the halo's sources for
+// every tap, then s_hp [4 HS * HS] and s_hc [4 HS * HS], one tap's lists
+// (each source reaches at most 4 targets). NW: 32-bit words of the mask of
+// candidate hits per target quarter, which holds ceil(win / 4) * win bits
+// (win = 2R + 2): 1 word up to radius 4, 2 up to 7, 4 up to 9.
 __host__ __device__ constexpr int x_halo(int radius) { return (XT + 2 * radius + 3) * (XT + 2 * radius + 3); }
-__host__ __device__ constexpr int x_smem_bytes(int radius) { return KT * x_halo(radius) * (4 + 16); }
+__host__ __device__ constexpr int x_smem_bytes(int radius) { return x_halo(radius) * (KT * (16 + 4) + 4 * (4 + 4)); }
+__host__ __device__ constexpr int x_mask_words(int radius) {
+  return ((2 * radius + 2 + 3) / 4 * (2 * radius + 2) + 31) / 32;
+}
 
+template <typename T, int NW>
 __global__ void __launch_bounds__(THREADS, 2)
-bwd_x_kernel(const float* __restrict__ off, const float* __restrict__ mask,
-             const float* __restrict__ g, const float* __restrict__ w, float* __restrict__ gx,
+bwd_x_kernel(const float* __restrict__ off, const T* __restrict__ mask,
+             const T* __restrict__ g, const T* __restrict__ w, float* __restrict__ gx,
              int B, int H, int W, int Cin, int Cout, int radius) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_cnt[XM];
   __shared__ int s_start[XM + 1];
-  __shared__ int s_hp[LIST_MAX];      // sources of each target, in target order
-  __shared__ float s_hc[LIST_MAX];    // their coef * mask
   __shared__ __align__(16) float sA[XM][XO + PAD];  // G_k's chunk: [target][output channel]
   __shared__ __align__(16) float sB[XN][XO + PAD];  // W_k's chunk: [input channel][output channel]
 
@@ -534,6 +578,8 @@ bwd_x_kernel(const float* __restrict__ off, const float* __restrict__ mask,
   const long long ibase = (long long)img * H * W;
   float4* s_frac = reinterpret_cast<float4*>(smem);          // ly, lx, mask
   int* s_pos = reinterpret_cast<int*>(s_frac + KT * HS2);     // top-left corner, packed; -1: none
+  int* s_hp = s_pos + KT * HS2;                               // sources of each target, in target order
+  float* s_hc = reinterpret_cast<float*>(s_hp + 4 * HS2);     // their coef * mask
 
   // 1. where each source of the halo samples, for every tap: one round of
   // loads (a source's 18 offsets and 9 mask values)
@@ -546,7 +592,7 @@ bwd_x_kernel(const float* __restrict__ off, const float* __restrict__ mask,
 #pragma unroll
       for (int k = 0; k < KT; ++k) {
         o2[k] = __ldg(reinterpret_cast<const float2*>(off + p * (2 * KT)) + k);
-        mk[k] = __ldg(mask + p * KT + k);
+        mk[k] = ld1(mask + p * KT + k);
       }
 #pragma unroll
       for (int k = 0; k < KT; ++k) {
@@ -588,7 +634,7 @@ bwd_x_kernel(const float* __restrict__ off, const float* __restrict__ mask,
     // 2. each target's sources p (coef != 0) in candidate order: count,
     // scan, fill. Candidate (a, b) is the source at row qy - ki - R + a,
     // column qx - kj - R + b; a target's quarter j takes the rows a = j,
-    // j + 4, ... (at most 3 rows of at most 10, so a 32-bit mask of hits).
+    // j + 4, ... (at most ceil(win / 4) rows of win: NW words of hits).
     auto coef_of = [&](int s, int pos) {
       const int ry = qly + 64 - (pos >> 8), rx = qlx + 64 - (pos & 255);
       if ((unsigned)ry > 1u || (unsigned)rx > 1u) return 0.f;
@@ -598,16 +644,23 @@ bwd_x_kernel(const float* __restrict__ off, const float* __restrict__ mask,
       return wy * wx * fr.z;
     };
     const int s0 = (qly - ki + 2 + quarter) * HS + (qlx - kj + 2);  // candidate (quarter, 0)
-    unsigned hits = 0;
+    unsigned hits[NW] = {};
     if (qok) {
       for (int a = quarter, bit = 0; a < win; a += 4, bit += win)
         for (int b = 0; b < win; ++b) {
           const int s = s0 + (a - quarter) * HS + b;
           const int pos = pos_k[s];
-          if (pos >= 0 && coef_of(s, pos) != 0.f) hits |= 1u << (bit + b);
+          if (pos >= 0 && coef_of(s, pos) != 0.f) {
+            if constexpr (NW == 1)
+              hits[0] |= 1u << (bit + b);
+            else
+              hits[(bit + b) >> 5] |= 1u << ((bit + b) & 31);
+          }
         }
     }
-    const int n = __popc(hits);
+    int n = 0;
+#pragma unroll
+    for (int wd = 0; wd < NW; ++wd) n += __popc(hits[wd]);
     int incl = n;
 #pragma unroll
     for (int d = 1; d < 4; d <<= 1) {
@@ -634,14 +687,16 @@ bwd_x_kernel(const float* __restrict__ off, const float* __restrict__ mask,
       // the source's pixel: row qy - ki - R + a, column qx - kj - R + b
       const long long src0 =
           ibase + (long long)(ty0 + qly - ki - radius + quarter) * W + tx0 + qlx - kj - radius;
-      for (unsigned h = hits; h; h &= h - 1) {
-        const int bit = __ffs(h) - 1;
-        const int r = bit / win, b = bit % win;  // row a = quarter + 4 r
-        const int s = s0 + 4 * r * HS + b;
-        s_hp[out] = (int)(src0 + (long long)(4 * r) * W + b);
-        s_hc[out] = coef_of(s, pos_k[s]);
-        ++out;
-      }
+#pragma unroll
+      for (int wd = 0; wd < NW; ++wd)
+        for (unsigned h = hits[wd]; h; h &= h - 1) {
+          const int bit = 32 * wd + __ffs(h) - 1;
+          const int r = bit / win, b = bit % win;  // row a = quarter + 4 r
+          const int s = s0 + 4 * r * HS + b;
+          s_hp[out] = (int)(src0 + (long long)(4 * r) * W + b);
+          s_hc[out] = coef_of(s, pos_k[s]);
+          ++out;
+        }
     }
     __syncthreads();
 
@@ -653,7 +708,7 @@ bwd_x_kernel(const float* __restrict__ off, const float* __restrict__ mask,
         const int row = e / (XO / 4), col = (e % (XO / 4)) * 4;
         const int c = c0 + row, o = o0 + col;
         const bool ok = c < Cin && o < Cout;
-        cp_async16(&sB[row][col], ok ? w + ((long long)k * Cin + c) * Cout + o : w, ok ? 16 : 0);
+        stage4(&sB[row][col], ok ? w + ((long long)k * Cin + c) * Cout + o : w, ok);
       }
       cp_async_commit();
       // two (target, 4-channel vector) items at a time, the first four
@@ -674,7 +729,7 @@ bwd_x_kernel(const float* __restrict__ off, const float* __restrict__ mask,
           for (int u = 0; u < 4; ++u) {
             const bool ok = h[i] + u < h1[i];
             cf[i][u] = ok ? s_hc[h[i] + u] : 0.f;
-            gv[i][u] = ok ? ldg4(g + (long long)s_hp[h[i] + u] * Cout + o0 + col[i])
+            gv[i][u] = ok ? ld4(g + (long long)s_hp[h[i] + u] * Cout + o0 + col[i])
                           : make_float4(0.f, 0.f, 0.f, 0.f);
           }
         }
@@ -684,7 +739,7 @@ bwd_x_kernel(const float* __restrict__ off, const float* __restrict__ mask,
 #pragma unroll
           for (int u = 0; u < 4; ++u) fma4(v[i], cf[i][u], gv[i][u]);
           for (int hh = h[i] + 4; hh < h1[i]; ++hh)
-            fma4(v[i], s_hc[hh], ldg4(g + (long long)s_hp[hh] * Cout + o0 + col[i]));
+            fma4(v[i], s_hc[hh], ld4(g + (long long)s_hp[hh] * Cout + o0 + col[i]));
           *reinterpret_cast<float4*>(&sA[row[i]][col[i]]) = v[i];
         }
       }
@@ -731,10 +786,66 @@ int weight_range(long long P, int Cin, int Cout) {
   return (int)(per < WR ? per : WR);
 }
 
+template <typename T>
+int bwd_pom(const void* x, const void* off, const void* mask, const void* g, const void* w,
+            void* go, void* gm, void* gw, void* part, int B, int H, int W, int Cin, int Cout,
+            int radius, int splits, cudaStream_t s) {
+  const long long P = (long long)B * H * W;
+  const float R = (float)radius;
+  const int bytes = pom_smem_bytes(Cout);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(bwd_pom_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  bwd_pom_kernel<T><<<dim3((unsigned)((P + PM - 1) / PM), KT), THREADS, bytes, s>>>(
+      (const T*)x, (const float*)off, (const T*)mask, (const T*)g, (const T*)w, (float*)go,
+      (float*)gm, B, H, W, Cin, Cout, R);
+  int rc = launch_error();
+  if (rc) return rc;
+  const int per = weight_range(P, Cin, Cout);
+  dim3 grid((unsigned)(KT * ((Cin + WC - 1) / WC)), (unsigned)((Cout + WO - 1) / WO),
+            (unsigned)splits);
+  bwd_weight_kernel<T><<<grid, THREADS, 0, s>>>((const T*)x, (const float*)off, (const T*)mask,
+                                                (const T*)g, (float*)part, B, H, W, Cin, Cout, R,
+                                                per);
+  rc = launch_error();
+  if (rc) return rc;
+  const long long n = (long long)KT * Cin * Cout;
+  bwd_weight_reduce_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, s>>>(
+      (const float*)part, (float*)gw, n, splits);
+  return launch_error();
+}
+
+template <typename T, int NW>
+int bwd_x_words(const void* off, const void* mask, const void* g, const void* w, void* gx,
+                int B, int H, int W, int Cin, int Cout, int radius, cudaStream_t s) {
+  const int bytes = x_smem_bytes(radius);
+  const cudaError_t e =
+      cudaFuncSetAttribute(bwd_x_kernel<T, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned tiles = (unsigned)(B * ((H + XT - 1) / XT) * ((W + XT - 1) / XT));
+  bwd_x_kernel<T, NW><<<dim3(tiles, (unsigned)((Cin + XN - 1) / XN)), THREADS, bytes, s>>>(
+      (const float*)off, (const T*)mask, (const T*)g, (const T*)w, (float*)gx, B, H, W, Cin, Cout,
+      radius);
+  return launch_error();
+}
+
+template <typename T>
+int bwd_x(const void* off, const void* mask, const void* g, const void* w, void* gx, int B, int H,
+          int W, int Cin, int Cout, int radius, cudaStream_t s) {
+  if (radius < 0 || radius > MAX_R) return (int)cudaErrorInvalidValue;
+  const int words = x_mask_words(radius);
+  if (words == 1) return bwd_x_words<T, 1>(off, mask, g, w, gx, B, H, W, Cin, Cout, radius, s);
+  if (words == 2) return bwd_x_words<T, 2>(off, mask, g, w, gx, B, H, W, Cin, Cout, radius, s);
+  return bwd_x_words<T, 4>(off, mask, g, w, gx, B, H, W, Cin, Cout, radius, s);
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes. Pointers are device pointers to
-// contiguous fp32 arrays; every launch goes on `stream` and nothing
+// contiguous arrays: offsets and every output fp32, x, mask, g and w of the
+// entry point's type; every launch goes on `stream` and nothing
 // synchronises. Each launcher returns cudaGetLastError() after its launches:
 // 0 when they were accepted.
 
@@ -752,47 +863,26 @@ extern "C" int dcn_bwd_pom_f32(const void* x, const void* off, const void* mask,
                                const void* g, const void* w, void* go, void* gm, void* gw,
                                void* part, int B, int H, int W, int Cin, int Cout,
                                int radius, int splits, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long P = (long long)B * H * W;
-  const float R = (float)radius;
-  const int bytes = pom_smem_bytes(Cout);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(bwd_pom_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  bwd_pom_kernel<<<dim3((unsigned)((P + PM - 1) / PM), KT), THREADS, bytes, s>>>(
-      (const float*)x, (const float*)off, (const float*)mask, (const float*)g,
-      (const float*)w, (float*)go, (float*)gm, B, H, W, Cin, Cout, R);
-  int rc = launch_error();
-  if (rc) return rc;
-  const int per = weight_range(P, Cin, Cout);
-  dim3 grid((unsigned)(KT * ((Cin + WC - 1) / WC)), (unsigned)((Cout + WO - 1) / WO),
-            (unsigned)splits);
-  bwd_weight_kernel<<<grid, THREADS, 0, s>>>((const float*)x, (const float*)off,
-                                             (const float*)mask, (const float*)g,
-                                             (float*)part, B, H, W, Cin, Cout, R, per);
-  rc = launch_error();
-  if (rc) return rc;
-  const long long n = (long long)KT * Cin * Cout;
-  bwd_weight_reduce_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, s>>>(
-      (const float*)part, (float*)gw, n, splits);
-  return launch_error();
+  return bwd_pom<float>(x, off, mask, g, w, go, gm, gw, part, B, H, W, Cin, Cout, radius, splits,
+                        (cudaStream_t)stream);
+}
+extern "C" int dcn_bwd_pom_bf16(const void* x, const void* off, const void* mask,
+                                const void* g, const void* w, void* go, void* gm, void* gw,
+                                void* part, int B, int H, int W, int Cin, int Cout,
+                                int radius, int splits, void* stream) {
+  return bwd_pom<__nv_bfloat16>(x, off, mask, g, w, go, gm, gw, part, B, H, W, Cin, Cout, radius,
+                                splits, (cudaStream_t)stream);
 }
 
 // gx (B, H, W, Cin) from offsets, mask, the cotangent g and the weight w.
 extern "C" int dcn_bwd_x_f32(const void* off, const void* mask, const void* g, const void* w,
                              void* gx, int B, int H, int W, int Cin, int Cout, int radius,
                              void* stream) {
-  if (radius < 0 || radius > MAX_R) return (int)cudaErrorInvalidValue;
-  const int bytes = x_smem_bytes(radius);
-  const cudaError_t e =
-      cudaFuncSetAttribute(bwd_x_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned tiles = (unsigned)(B * ((H + XT - 1) / XT) * ((W + XT - 1) / XT));
-  bwd_x_kernel<<<dim3(tiles, (unsigned)((Cin + XN - 1) / XN)), THREADS, bytes,
-                 (cudaStream_t)stream>>>((const float*)off, (const float*)mask, (const float*)g,
-                                         (const float*)w, (float*)gx, B, H, W, Cin, Cout,
-                                         radius);
-  return launch_error();
+  return bwd_x<float>(off, mask, g, w, gx, B, H, W, Cin, Cout, radius, (cudaStream_t)stream);
+}
+extern "C" int dcn_bwd_x_bf16(const void* off, const void* mask, const void* g, const void* w,
+                              void* gx, int B, int H, int W, int Cin, int Cout, int radius,
+                              void* stream) {
+  return bwd_x<__nv_bfloat16>(off, mask, g, w, gx, B, H, W, Cin, Cout, radius,
+                              (cudaStream_t)stream);
 }

@@ -13,9 +13,18 @@ normalises each microbatch with its own moments and updates the running
 statistics once per microbatch, and one optimizer update follows, as the
 JAX package's ``lax.scan`` form does.
 
-Not ported yet: ``remat`` (the JAX package's ``jax.checkpoint`` of the
-forward) and bf16 training (``cfg.model.fp16``). The trainer starts from
-seeded random weights, with the ImageNet DLA-34 trunk of
+With ``cfg.model.fp16`` the step trains as the JAX package's does under
+the same switch (``dcd_tpu/engine/train.py:1-8,47``): bf16 activations
+(the detector's forward in bf16, the DCN kernels' bf16 entry points
+forward and backward), fp32 parameters and optimizer state (each layer
+casts its weights to bf16 and autograd brings their gradients back to
+fp32), fp32 losses (the heads' outputs that the loss reads are fp32), and
+no loss scaling. With ``cfg.model.remat`` the forward of each microbatch
+runs under ``torch.utils.checkpoint`` and is recomputed in the backward,
+as the JAX package's ``jax.checkpoint``; the recomputation leaves BN's
+running statistics alone (``models/layers.py::frozen_running_stats``), so
+the step equals the one without remat. The trainer starts from seeded
+random weights, with the ImageNet DLA-34 trunk of
 ``cfg.model.pretrain_path`` loaded over them when that names a local file.
 """
 
@@ -28,9 +37,11 @@ from typing import Dict, Iterator, Mapping, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..models.detector import KeypointDetector
+from ..models.layers import frozen_running_stats
 from ..utils.checkpoint import load_torch_dla34
 from .infer import build_detector, resolve_device
 from .loss import compute_losses
@@ -93,9 +104,11 @@ def build_trainer(cfg: Config, device: Union[str, torch.device, None] = None, se
     from that ImageNet DLA-34 ``.pth`` (:func:`..utils.checkpoint.load_torch_dla34`).
     Without a path the trunk keeps its random weights: the JAX package would
     try the reference's download URL, and the port downloads nothing.
+
+    ``cfg.model.fp16`` trains with bf16 activations and fp32 parameters,
+    ``cfg.model.remat`` recomputes each microbatch's forward in the backward
+    (module docstring).
     """
-    if cfg.model.fp16:
-        raise NotImplementedError("bf16 training is not ported; fp16 runs inference only")
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = resolve_device(device)
     model = build_detector(cfg, dev, seed).train()
@@ -133,7 +146,13 @@ def compute_gradients(trainer: Trainer, batch: Mapping) -> Dict[str, torch.Tenso
     with _step_mode(trainer):
         for i in range(accum):
             mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-            preds = model(mb["images"], mb["edge_indices"], mb["edge_len"])
+            if cfg.model.remat:
+                preds = checkpoint(model, mb["images"], mb["edge_indices"], mb["edge_len"],
+                                   use_reentrant=False,
+                                   context_fn=lambda: (contextlib.nullcontext(),
+                                                       frozen_running_stats(model)))
+            else:
+                preds = model(mb["images"], mb["edge_indices"], mb["edge_len"])
             total, _, logs = compute_losses(cfg, preds, mb)
             (total / accum).backward()
             for k, v in {**logs, "total_loss": total}.items():

@@ -17,7 +17,9 @@ type, as flax's ``BatchNorm`` does. With fp32 inputs every cast is a no-op.
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -57,6 +59,24 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                                   self.output_padding, self.groups, self.dilation)
 
 
+@contextlib.contextmanager
+def frozen_running_stats(model: nn.Module) -> Iterator[None]:
+    """Training-mode BN of ``model`` inside the body normalises with the
+    batch's moments as always but leaves its running statistics and
+    ``num_batches_tracked`` as they are. ``engine/train.py`` runs the forward
+    that ``torch.utils.checkpoint`` recomputes in the backward (``remat``) in
+    it, so that each step updates the statistics once, as the JAX package's
+    functional ``jax.checkpoint`` does."""
+    bns = [m for m in model.modules() if isinstance(m, _BiasedRunningVar)]
+    for m in bns:
+        m.stats_frozen = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.stats_frozen = False
+
+
 class _BiasedRunningVar:
     """Training-mode BN whose running variance takes the *biased* batch
     variance, as flax's ``BatchNorm`` (the JAX package's) does; torch's own
@@ -64,12 +84,17 @@ class _BiasedRunningVar:
     parameters, the buffers and their names are torch's; eval mode is
     torch's own. ``momentum=None`` keeps torch's cumulative average. A bf16
     input is normalised in fp32 and its statistics taken in fp32 (flax's
-    ``force_float32_reductions``); the output is bf16."""
+    ``force_float32_reductions``); the output is bf16. Under
+    :func:`frozen_running_stats` the running statistics stay as they are."""
+
+    stats_frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if self.stats_frozen:
+            return out
         with torch.no_grad():
             dims = [0, *range(2, x.dim())]
             var, mean = torch.var_mean(x.float(), dims, correction=0)

@@ -142,24 +142,30 @@ def deform_conv2d_gather(
 
 def _plain_vjp(x, offset, mask, weight, g, radius, wrt):
     """``torch.autograd.grad`` of :func:`deform_conv2d_clamped` (no bias) at
-    cotangent ``g``, with respect to the arguments named in ``wrt``."""
+    cotangent ``g``, with respect to the arguments named in ``wrt``, taken
+    in fp32 on the inputs widened to fp32 (as the backward kernels and the
+    JAX package's Pallas backward walk and sum in fp32 whatever the input
+    type), each gradient then cast to its input's type (as the JAX
+    package's ``_bwd`` casts them)."""
     args = {"x": x, "offset": offset, "mask": mask, "weight": weight}
     with torch.enable_grad():
-        leaves = {k: v.detach().requires_grad_(k in wrt) for k, v in args.items()}
+        leaves = {k: v.detach().float().requires_grad_(k in wrt) for k, v in args.items()}
         out = deform_conv2d_clamped(leaves["x"], leaves["offset"], leaves["mask"],
                                     leaves["weight"], None, radius)
-        return torch.autograd.grad(out, [leaves[k] for k in wrt], g)
+        grads = torch.autograd.grad(out, [leaves[k] for k in wrt], g.float())
+    return tuple(gr.to(args[k].dtype) for k, gr in zip(wrt, grads))
 
 
 def dcn_bwd_pom_plain(x, offset, mask, weight, g, radius: float = 3):
     """(grad_offset, grad_mask, grad_weight) of the clamped deformable conv
     at cotangent ``g``: the plain version of the K2 kernel, and the same
     oracle as the JAX package's ``BACKWARD = "xla"`` (autodiff of the
-    clamped form). grad_offset is zero where the clamp is active."""
-    return tuple(_plain_vjp(x, offset, mask, weight, g, radius, ("offset", "mask", "weight")))
+    clamped form). grad_offset is zero where the clamp is active. Each
+    gradient in its input's type, computed in fp32."""
+    return _plain_vjp(x, offset, mask, weight, g, radius, ("offset", "mask", "weight"))
 
 
 def dcn_bwd_x_plain(x, offset, mask, weight, g, radius: float = 3):
     """grad_x of the clamped deformable conv at cotangent ``g``: the plain
-    version of the K3 kernel."""
+    version of the K3 kernel, computed in fp32, in x's type."""
     return _plain_vjp(x, offset, mask, weight, g, radius, ("x",))[0]

@@ -103,8 +103,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "dcn_bwd_weight_splits": [i32] * 5,
         # x, offset, mask, g, weight, go, gm, gw, part, B, H, W, Cin, Cout, radius, splits, stream
         "dcn_bwd_pom_f32": [ptr] * 9 + [i32] * 7 + [ptr],
+        "dcn_bwd_pom_bf16": [ptr] * 9 + [i32] * 7 + [ptr],
         # offset, mask, g, weight, gx, B, H, W, Cin, Cout, radius, stream
         "dcn_bwd_x_f32": [ptr] * 5 + [i32] * 6 + [ptr],
+        "dcn_bwd_x_bf16": [ptr] * 5 + [i32] * 6 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

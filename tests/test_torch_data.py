@@ -163,8 +163,8 @@ def test_yaml_config_equals_jax(base):
     port_base, jax_base = getattr(port_config, base)(), getattr(jax_config, base)()
     got = dataclasses.asdict(port_config.load_yaml_config(path, base=port_base))
     want = dataclasses.asdict(jax_config.load_yaml_config(path, base=jax_base))
-    # the port has no ``remat`` (the JAX package's jax.checkpoint switch)
-    assert want["model"].pop("remat") is False
+    # ``remat`` too (the port's torch.utils.checkpoint switch)
+    assert got["model"]["remat"] is want["model"]["remat"] is False
     assert got == want
     if base == "default_config":  # the file changes the defaults
         assert got != dataclasses.asdict(port_base)

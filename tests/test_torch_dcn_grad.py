@@ -21,6 +21,13 @@ and grad_weight as (mask s_k)^T g summed over pixel ranges in order (K2's
 bwd_weight_kernel). The NaN case goes to the dense form alone: the JAX
 package's Pallas backward kernels do not drop a NaN tap (their gradients
 there differ from the dense form's at the scale of the gradients).
+
+The bf16 cases hold the plain versions at the inputs of the JAX package's
+bf16 training (x, mask, weight, bias and the cotangent in bf16, offsets
+fp32) to the same JAX VJPs, taken on the same bf16 arrays: each gradient
+in JAX's dtype, the bf16 ones within one bf16 rounding of their scale
+(BF16_TOL) and the fp32 grad_offset within TOL: both sides walk and sum in
+fp32 on the values widened to fp32 and round each gradient once.
 """
 
 import functools
@@ -40,6 +47,8 @@ from dcd_tpu_torch.ops.dcn_cuda import DeformConv2dFunction
 from torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
+# one bf16 rounding (2^-8 of a value) on either side, of the gradient's scale
+BF16_TOL = 8e-3
 NAMES = ("x", "offset", "mask", "weight", "bias")
 
 
@@ -122,6 +131,71 @@ def test_function_grads_match_jax_vjps(B, H, W, C, Cout, R, off_scale, oracles):
         assert np.abs(grads[1]).max() > 0.1
 
 
+# offset scale, NaN offsets, oracle, radius. The Pallas cases take R = 1:
+# the interpret-mode Pallas VJP unrolls (2R + 2)^2 window positions per tap,
+# so it compiles in about a third of R = 2's time (at scale 0.9 a quarter of
+# the offsets are clipped already); the dense one takes the factorization
+# cases' R = 2, whose dense form the fp32 NaN case has traced
+BF16_CASES = {
+    "plain": (0.9, False, "pallas", 1),
+    "clipped": (4.0, False, "pallas", 1),
+    "nan": (0.9, True, "dense", 2),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_grads_bf16(case):
+    """The JAX oracle's (out, grads) at the factorization shape on bf16 x, mask,
+    weight, bias and cotangent (offsets fp32), as numpy in JAX's dtypes.
+    The dense oracle takes the bf16 arrays widened to fp32, as
+    tests/test_dcn.py::test_backward_bf16_model_dtype does, so its gradients
+    come back in the inputs' dtypes."""
+    off_scale, nan, oracle, R = BF16_CASES[case]
+    args, g = _case_inputs(*FACTOR_SHAPE, off_scale, nan)
+    bf = jnp.bfloat16
+    x, off, mask, w, b = (jnp.asarray(a) for a in args)
+    jargs = (x.astype(bf), off, mask.astype(bf), w.astype(bf), b.astype(bf))
+    gj = jnp.asarray(g).astype(bf)
+    if oracle == "pallas":
+        out, grads = _pallas_vjp(*jargs, gj, R)
+    else:
+        def dense(x, off, mask, w, b):
+            return deform_conv2d_dense(x.astype(jnp.float32), off, mask.astype(jnp.float32),
+                                       w.astype(jnp.float32), b.astype(jnp.float32),
+                                       stride=1, padding=1, radius=R)
+
+        out, vjp = jax.vjp(dense, *jargs)
+        grads = vjp(gj.astype(jnp.float32))
+    return np.asarray(out.astype(jnp.float32)), grads
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_function_bf16_grads_match_jax_vjps(case):
+    """The Function on bf16 CPU tensors (plain versions) against JAX's VJP
+    of the same bf16 arrays: grad x, mask, weight and bias in bf16 within
+    BF16_TOL of their scale, grad offset fp32 within TOL."""
+    off_scale, nan, oracle, R = BF16_CASES[case]
+    args, g = _case_inputs(*FACTOR_SHAPE, off_scale, nan)
+    leaves = [torch.from_numpy(a) for a in args]
+    leaves = [t if i == 1 else t.bfloat16() for i, t in enumerate(leaves)]
+    leaves = [t.requires_grad_() for t in leaves]
+    out = DeformConv2dFunction.apply(*leaves, R)
+    assert out.dtype == torch.bfloat16
+    out.backward(torch.from_numpy(g).bfloat16())
+    _, want = _jax_grads_bf16(case)
+    for name, t, jw in zip(NAMES, leaves, want):
+        assert str(t.grad.dtype).split(".")[-1] == str(jw.dtype), (name, t.grad.dtype, jw.dtype)
+        got, ref = t.grad.float().numpy(), np.asarray(jw.astype(jnp.float32))
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(got - ref).max())
+        tol = TOL if name == "offset" else BF16_TOL
+        assert err <= tol * scale, f"{oracle} bf16 grad {name}: max abs err {err} vs scale {scale}"
+    if case == "clipped":  # the clip stops grad_offset in bf16 too
+        off = args[1]
+        assert (np.abs(off) > R).mean() > 0.5
+        assert np.all(leaves[1].grad.numpy()[np.abs(off) > R] == 0.0)
+
+
 def test_clamped_offsets_get_no_offset_gradient():
     """Only grad_offset stops at the clamp: x and the mask still get theirs,
     taken at the clamped position."""
@@ -141,14 +215,32 @@ def test_cpu_wrappers_are_the_plain_versions():
     args, g = _inputs(1, 6, 7, 4, 8, 1.3)
     x, off, mask, w, _ = map(torch.from_numpy, args)
     gt = torch.from_numpy(g)
-    before = (dcn_cuda.dcn_bwd_pom.launches, dcn_cuda.dcn_bwd_x.launches)
+    before = (dict(dcn_cuda.dcn_bwd_pom.launches_by_kernel), dict(dcn_cuda.dcn_bwd_x.launches_by_kernel))
     pom = dcn_cuda.dcn_bwd_pom(x, off, mask, w, gt, 3)
     gx = dcn_cuda.dcn_bwd_x(x, off, mask, w, gt, 3)
     assert len(pom) == 3  # no tap products: the kernels keep U out of device memory
     for got, want in zip(pom, dcn_bwd_pom_plain(x, off, mask, w, gt, 3)):
         assert torch.equal(got, want)
     assert torch.equal(gx, dcn_bwd_x_plain(x, off, mask, w, gt, 3))
-    assert (dcn_cuda.dcn_bwd_pom.launches, dcn_cuda.dcn_bwd_x.launches) == before
+    assert (dcn_cuda.dcn_bwd_pom.launches_by_kernel, dcn_cuda.dcn_bwd_x.launches_by_kernel) == before
+
+
+def test_cpu_wrappers_take_bf16_as_the_kernels_do():
+    """bf16 x, mask, weight and g with fp32 offsets: the plain versions, in
+    fp32 on the widened values, each gradient in its input's type (grad
+    offset fp32), and no launch counted."""
+    args, g = _inputs(1, 6, 7, 8, 8, 1.3)
+    x, off, mask, w, _ = map(torch.from_numpy, args)
+    xb, mb, wb, gb = (t.bfloat16() for t in (x, mask, w, torch.from_numpy(g)))
+    before = (dict(dcn_cuda.dcn_bwd_pom.launches_by_kernel), dict(dcn_cuda.dcn_bwd_x.launches_by_kernel))
+    go, gm, gw = dcn_cuda.dcn_bwd_pom(xb, off, mb, wb, gb, 3)
+    gx = dcn_cuda.dcn_bwd_x(xb, off, mb, wb, gb, 3)
+    assert (go.dtype, gm.dtype, gw.dtype, gx.dtype) == (torch.float32,) + (torch.bfloat16,) * 3
+    wide = [t.float() for t in (xb, off, mb, wb, gb)]
+    for got, want in zip((go, gm, gw), dcn_bwd_pom_plain(*wide, 3)):
+        assert torch.equal(got, want.to(got.dtype))
+    assert torch.equal(gx, dcn_bwd_x_plain(*wide, 3).bfloat16())
+    assert (dcn_cuda.dcn_bwd_pom.launches_by_kernel, dcn_cuda.dcn_bwd_x.launches_by_kernel) == before
 
 
 def _bad_args(case):
@@ -157,6 +249,8 @@ def _bad_args(case):
     g = torch.from_numpy(g)
     if case == "bf16 x":
         return (x.bfloat16(), off, mask, w, g), TypeError
+    if case == "bf16 offset":
+        return (x.bfloat16(), off.bfloat16(), mask.bfloat16(), w.bfloat16(), g.bfloat16()), TypeError
     if case == "fp64 g":
         return (x, off, mask, w, g.double()), TypeError
     if case == "offset shape":
@@ -173,25 +267,31 @@ def _bad_args(case):
 
 
 @pytest.mark.parametrize("wrapper", ["dcn_bwd_pom", "dcn_bwd_x"])
-@pytest.mark.parametrize("case", ["bf16 x", "fp64 g", "offset shape", "weight Cin", "g Cout",
-                                  "strided mask"])
+@pytest.mark.parametrize("case", ["bf16 x", "bf16 offset", "fp64 g", "offset shape", "weight Cin",
+                                  "g Cout", "strided mask"])
 def test_backward_wrappers_check_their_arguments(wrapper, case):
     args, err = _bad_args(case)
     with pytest.raises(err):
         getattr(dcn_cuda, wrapper)(*args, 3)
 
 
-@pytest.mark.parametrize("case", ["offset off 8 bytes", "radius -1", "K3 radius 5", "K2 radius 5"])
+@pytest.mark.parametrize("case", ["offset off 8 bytes", "radius -1", "K3 radius 5", "K3 radius 7",
+                                  "K3 radius 10", "K2 radius 5"])
 def test_backward_kernel_checks(case):
     """What only the kernels need, checked before a launch: offsets on an
     8-byte boundary (K3 reads them in pairs) and a radius of 0 to
-    ``BWD_X_MAX_RADIUS`` for K3, any radius >= 0 for K2 (no halo). The
-    check reads nothing but pointers and shapes, so CPU tensors stand in."""
+    ``BWD_X_MAX_RADIUS`` (9) for K3, as K1 and K2 take them (training with
+    ``--dcn_radius`` 5 or 7 reaches K3), any radius >= 0 for K2 (no halo).
+    The check reads nothing but pointers and shapes, so CPU tensors stand
+    in. Beyond radius 9 K3's halo would not fit in an H100 block's shared
+    memory, which the error names."""
     args, g = _inputs(1, 5, 6, 8, 8, 1.0)
     x, off, _, w, _ = [torch.from_numpy(a).clone() for a in args]  # torch's aligned storage
     g = torch.from_numpy(g).clone()
     r, top, err = {"offset off 8 bytes": (3, None, ValueError), "radius -1": (-1, None, ValueError),
-                   "K3 radius 5": (5, dcn_cuda.BWD_X_MAX_RADIUS, ValueError),
+                   "K3 radius 5": (5, dcn_cuda.BWD_X_MAX_RADIUS, None),
+                   "K3 radius 7": (7, dcn_cuda.BWD_X_MAX_RADIUS, None),
+                   "K3 radius 10": (10, dcn_cuda.BWD_X_MAX_RADIUS, ValueError),
                    "K2 radius 5": (5, None, None)}[case]
     if case == "offset off 8 bytes":
         off = torch.zeros(off.numel() + 1)[1:].view(off.shape)
@@ -201,8 +301,9 @@ def test_backward_kernel_checks(case):
         dcn_cuda._check_bwd_kernel(x, off, w, g, dcn_cuda.BWD_X_MAX_RADIUS,
                                    dcn_cuda.BWD_X_MAX_RADIUS)
     else:
-        with pytest.raises(err):
+        with pytest.raises(err) as raised:
             dcn_cuda._check_bwd_kernel(x, off, w, g, r, top)
+        assert case != "K3 radius 10" or "shared memory" in str(raised.value)
 
 
 def test_dcn_module_function_path_matches_plain_autograd():

@@ -41,7 +41,7 @@ from dcd_tpu_torch.models.layers import DCN
 from dcd_tpu_torch.ops import codec as port_codec
 from dcd_tpu_torch.ops.nms import select_topk, topk_like_jax
 from dcd_tpu_torch.utils.weights import from_jax_gmw_params, from_jax_variables, load_state
-from torch_port_common import calibrated_variables, small_configs
+from torch_port_common import calibrated_variables, one_torch_thread, small_configs  # noqa: F401
 
 TRAIN_JSON = "gen_data/gen_data_train.json"
 INFER_JSON = "gen_data/gen_data_infer.json"
@@ -53,6 +53,18 @@ REL = 1e-4
 # (1 + 1e-6 randn) moves it by 5.2e-2 m in the port's decode, which on
 # JAX's own keypoints gives JAX's depths exactly.
 PAIR_LOC_REL = 2e-3
+# The slice's refined depths are as ill-conditioned: the GMW's top-64 edge
+# set (and so a refined depth) can flip on a rounding-size change. Measured
+# with tests/conditioning_probe.py on JAX's own chain (6 draws each): one
+# against eight XLA threads moves no object by over 1e-4 of the scale
+# (2.2e-4 m at most); every weight times (1 + 1e-7 randn) moves up to one
+# object by up to 0.214 m, 5.2e-3 of the scale, the rest under 1e-4; the
+# images times (1 + 1e-6 randn) move 3-10 objects by up to 0.648 m, 2.2e-2.
+# The port on one intra-op thread parts from JAX by the same 0.214 m at one
+# object. So every matched object but SLICE_FLIPS is held to 1e-4 of the
+# scale, and those to SLICE_FLIP_REL, twice the weight perturbation's reach.
+SLICE_FLIPS = 1
+SLICE_FLIP_REL = 1e-2
 B = 2
 
 
@@ -282,7 +294,7 @@ def test_slice_end_to_end_matches_jax(pair, tmp_path):
     depth 2, top-64, as test_full_pipeline) -> its inference rows -> its
     infer JSON -> its loader -> predict -> rescale_location. Losses <= 1e-4
     relative; refined depths and locations of the matched objects <= 1e-4 of
-    scale."""
+    scale, but for SLICE_FLIPS objects <= SLICE_FLIP_REL (see there)."""
     jcfg, samples = pair["jcfg"], pair["samples"]
     loaded = {}
     for name, mod, out, rows in (("port", port_gen_data, pair["tout"], pair["trows"]),
@@ -338,6 +350,11 @@ def test_slice_end_to_end_matches_jax(pair, tmp_path):
             if (b, i) in refined["port"] and (b, j) in refined["jax"]]
     assert len(both) >= len(refined["jax"]) - 4
     for i, what in enumerate(("refined depth", "refined location")):
-        _close(np.array([p[i] for p, _ in both]), np.array([j[i] for _, j in both]), REL, what)
+        got = np.array([p[i] for p, _ in both], np.float64).reshape(len(both), -1)
+        want = np.array([j[i] for _, j in both], np.float64).reshape(len(both), -1)
+        scale = float(np.abs(want).max())
+        err = np.abs(got - want).max(1)
+        assert (err > REL * scale).sum() <= SLICE_FLIPS, (what, np.sort(err)[-3:], scale)
+        assert err.max() <= SLICE_FLIP_REL * scale, (what, err.max(), scale)
     with open(tmp_path / "port_infer.json") as f:
         assert sorted(json.load(f)) == [s.img_id for s in samples]

@@ -3,12 +3,14 @@
 One train step: the same numpy weights (carried with ``from_jax_variables``)
 and the same encoded batch go through the port's ``compute_gradients``
 (its DCNs through ``DeformConv2dFunction``, here on the CPU) and the JAX
-package's ``make_grad_fn``. Every loss and log term and every BN running
-statistic must agree to 1e-4 of its largest magnitude, every parameter's
-gradient to 1e-3, the terms built on edge-pair depths to 5e-3, and the
-gradients of the heads that feed the pair solve to 5e-2 in relative
-Frobenius norm: fp32 arithmetic in another order through a deep network,
-amplified and switched as the constants below say. The
+package's ``make_grad_fn``. Every loss and log term must agree to 5e-4
+relative, every BN running statistic to 1e-4 of its largest magnitude,
+every parameter's gradient to 5e-3 (in the trunk and ``dla_up``, which a
+switch of the step moves, to 2.5e-2 each and 1.2e-2 as one vector per
+part), the terms built on edge-pair depths to 5e-3, and the gradients of the heads that feed
+the pair solve to 5e-2 in relative Frobenius norm: fp32 arithmetic in
+another order through a deep
+network, amplified and switched as the constants below say. The
 JAX side samples with the unbounded gather form, which equals the port's
 clamped form while no offset reaches the clamp; the test checks that none
 does. The model is the small configuration of ``torch_port_common`` cut to
@@ -49,7 +51,7 @@ from dcd_tpu_torch.engine.train import (build_trainer, compute_gradients,
 from dcd_tpu_torch.models.layers import DCN
 from dcd_tpu_torch.ops import dcn_cuda
 from dcd_tpu_torch.utils.weights import from_jax_variables, load_state
-from torch_port_common import numpy_variables, small_configs
+from torch_port_common import numpy_variables, one_torch_thread, small_configs  # noqa: F401
 
 REL = 1e-4
 RADIUS = 3
@@ -72,9 +74,11 @@ def test_build_trainer_sets_the_deterministic_mode():
     with deterministic_algorithms():
         assert _mode() == (True, True, False)
     assert _mode() == before
-    with pytest.raises(NotImplementedError, match="bf16"):
-        build_trainer(dataclasses.replace(tcfg, model=dataclasses.replace(tcfg.model, fp16=True)),
-                      device="cpu")
+    # bf16 training: bf16 activations, fp32 parameters (test_torch_train_bf16.py)
+    bf16 = build_trainer(dataclasses.replace(tcfg, model=dataclasses.replace(tcfg.model, fp16=True)),
+                         device="cpu")
+    assert bf16.deterministic and bf16.model.dtype == torch.bfloat16
+    assert {p.dtype for p in bf16.model.parameters()} == {torch.float32}
 # The two packages' forward passes in train mode differ by 3e-5 of the
 # DLASeg feature's scale (measured at these weights): convolutions and BN
 # moments summed in another order through 30 layers. The gradients inherit
@@ -92,7 +96,29 @@ def test_build_trainer_sets_the_deterministic_mode():
 # by 1.3e-2 of its tensor's scale). test_torch_losses.py holds the pair
 # solve and its gradient to JAX on equal predictions, where none of this
 # arises.
-GRAD_REL = 1e-3
+# The loss terms and the other gradients have switches too. Measured with
+# tests/conditioning_probe.py --train on these weights and this microbatch
+# (the port's own step, 3 draws): the step sits by a switch in the
+# up-sampling path. One intra-op thread against eight flips it, and so does
+# every weight times (1 + 1e-7 randn) at one thread in two draws of three.
+# Flipped, it moves a loss term by up to 1.5e-4 relative, the BN running
+# statistics by under 2.4e-5, and 28 weight gradients (44 with the biases)
+# of the trunk and of dla_up by over 5e-3 of their scale, up to 1.22e-2 (the
+# BN weight of dla_up.ida_1.proj_1) and 8.6e-3 in the trunk: as one vector
+# 5.6e-3 (trunk) and 3.7e-3 (dla_up) in relative Frobenius norm; the
+# gradients of ida_up and the heads by 6.1e-4 at most. Unflipped the port
+# parts from JAX by 4.1e-4 at most in any gradient (torch's default pool of
+# eight threads lands on JAX's side of the switch; one thread does not). So
+# the loss terms are held to LOSS_REL, about three times the switch's reach;
+# the gradients of ida_up and the heads each to GRAD_REL; those of the trunk
+# and dla_up each to GRAD_SWITCH_REL and, as one vector per part, to
+# GRAD_SWITCH_FRO, about twice the switch's reach; the BN statistics stay at
+# REL.
+LOSS_REL = 5e-4
+GRAD_REL = 5e-3
+GRAD_SWITCH_REL = 2.5e-2
+GRAD_SWITCH_FRO = 1.2e-2
+SWITCHED_PARTS = ("backbone.base.", "backbone.dla_up.")
 PAIR_REL = 5e-3
 PAIR_HEADS_FRO = 5e-2
 PAIR_TERMS = {"pairs_kpts_depth_loss", "extra_all_MAE", "edges_MAE", "corner_loss"}
@@ -186,24 +212,34 @@ def _biases_before_bn(names):
 def _check_step(trainer, logs, grads, want_logs, want_total, want_grads, want_stats):
     tcfg = trainer.cfg
     for k, v in want_logs.items():
-        _close(logs[k], v, k, PAIR_REL if k in PAIR_TERMS else REL)
-    _close(logs["total_loss"], want_total, "total_loss")
+        _close(logs[k], v, k, PAIR_REL if k in PAIR_TERMS else LOSS_REL)
+    _close(logs["total_loss"], want_total, "total_loss", LOSS_REL)
     want = _jax_state(want_grads, tcfg)
     assert set(want) == set(grads)
+    rel = {}  # each gradient's max abs error over its scale
     for name, g in grads.items():
-        if name in _biases_before_bn(want):
-            # a train-mode BN removes this bias: its exact gradient is 0 and
-            # both sides give rounding noise, held to the scale of the same
-            # layer's weight gradient
-            weight = want[name[: -len("bias")] + "weight"]
-            scale = max(np.abs(want[name]).max(), np.abs(weight).max())
-            assert np.abs(g - want[name]).max() <= GRAD_REL * scale, name
-            continue
         if name.startswith(_pair_heads(tcfg)):
             fro = np.linalg.norm(g - want[name]) / np.linalg.norm(want[name])
             assert fro <= PAIR_HEADS_FRO, f"grad {name}: relative Frobenius error {fro}"
             continue
-        _close(g, want[name], f"grad {name}", GRAD_REL)
+        scale = float(np.abs(want[name]).max())
+        if name in _biases_before_bn(want):
+            # a train-mode BN removes this bias: its exact gradient is 0 and
+            # both sides give rounding noise, held to the scale of the same
+            # layer's weight gradient
+            scale = max(scale, float(np.abs(want[name[: -len("bias")] + "weight"]).max()))
+        err = float(np.abs(np.asarray(g, np.float64) - want[name]).max())
+        rel[name] = max(err - 1e-12, 0.0) / max(scale, 1e-30)
+    assert len(rel) > 100
+    worse = {n: r for n, r in rel.items()
+             if r > (GRAD_SWITCH_REL if n.startswith(SWITCHED_PARTS) else GRAD_REL)}
+    assert not worse, sorted(worse.items(), key=lambda kv: -kv[1])[:5]
+    for part in SWITCHED_PARTS:
+        names = sorted(n for n in rel if n.startswith(part))
+        a = np.concatenate([np.asarray(grads[n], np.float64).ravel() for n in names])
+        b = np.concatenate([np.asarray(want[n], np.float64).ravel() for n in names])
+        fro = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        assert names and fro <= GRAD_SWITCH_FRO, f"grads {part}*: relative Frobenius error {fro}"
     stats = from_jax_variables({"params": {}, "batch_stats": want_stats}, tcfg)
     sd = trainer.model.state_dict()
     assert len(stats) > 20
