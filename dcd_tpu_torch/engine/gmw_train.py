@@ -12,6 +12,14 @@ The JAX package's optimizer is optax's chain ``scale_by_adam(0.9, 0.999)``
 with the LR set before each update from the update count. A step runs in
 PyTorch's deterministic mode (two states from one seed given the same
 batches reach the same bits).
+
+Given a process group (``create_gmw_state(..., process_group=...)``) the
+step is data-parallel, as the JAX command line's over its local devices: each
+rank holds an equal slice of the batch, and ``DistributedDataParallel``
+averages the gradients. The losses are batch means and ``gcn_norm`` works
+per sample, so that mean is the gradient of the global batch's loss. Whether
+the step is finite is decided on the global loss, and the logs are the
+global ones.
 """
 
 from __future__ import annotations
@@ -19,12 +27,15 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from ..models import gmw as G
+from ..parallel.mesh import all_reduce_sum, replicate
 from .infer import resolve_device
 from .train import deterministic_algorithms
 
@@ -55,6 +66,9 @@ class GMWState:
     schedule: Callable[[int], float]
     device: torch.device
     step: int = 0
+    # data parallelism: the group, and the model's DDP wrapper
+    process_group: Optional[dist.ProcessGroup] = None
+    ddp: Optional[DistributedDataParallel] = None
 
 
 def epoch_cosine_lr(cfg: GMWConfig, steps_per_epoch: int) -> Callable[[int], float]:
@@ -73,13 +87,16 @@ def epoch_cosine_lr(cfg: GMWConfig, steps_per_epoch: int) -> Callable[[int], flo
 
 
 def create_gmw_state(cfg: GMWConfig, seed: int = 0, steps_per_epoch: int = 1,
-                     device: Union[str, torch.device, None] = None) -> Tuple[G.GMW, GMWState]:
+                     device: Union[str, torch.device, None] = None,
+                     process_group: Optional[dist.ProcessGroup] = None) -> Tuple[G.GMW, GMWState]:
     """The GMW on ``device`` (``cuda`` unless the caller names another;
     raises without a card) with flax-initialised weights drawn from
     ``torch.Generator`` ``seed``, and its optimizer state.
     ``steps_per_epoch`` drives the per-epoch LR schedule. Sets
     ``CUBLAS_WORKSPACE_CONFIG`` for the process when it is not set, as
-    ``build_trainer`` does, for the deterministic mode's cuBLAS."""
+    ``build_trainer`` does, for the deterministic mode's cuBLAS. With
+    ``process_group`` every rank starts from rank 0's weights and the step
+    is data-parallel (module docstring)."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = resolve_device(device)
     model = G.GMW(cfg.num_kpts, cfg.features, cfg.depth, cfg.sinkhorn_lambda)
@@ -88,7 +105,14 @@ def create_gmw_state(cfg: GMWConfig, seed: int = 0, steps_per_epoch: int = 1,
     schedule = epoch_cosine_lr(cfg, steps_per_epoch)
     opt = torch.optim.AdamW(model.parameters(), lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=cfg.weight_decay)
-    return model, GMWState(opt, schedule, dev)
+    state = GMWState(opt, schedule, dev)
+    if process_group is not None:
+        replicate(model, process_group)
+        state.process_group = process_group
+        state.ddp = DistributedDataParallel(
+            model, device_ids=[dev.index] if dev.type == "cuda" else None,
+            process_group=process_group)
+    return model, state
 
 
 def _to_device(batch: Mapping, dev: torch.device) -> Dict[str, torch.Tensor]:
@@ -102,7 +126,8 @@ def make_gmw_train_step(cfg: GMWConfig, model: G.GMW):
     (B, n, 3), pred_rot (B,), gt_depth (B,), numpy or tensors. When the
     loss is not finite the gradients become zeros and the optimizer still
     steps (moments decay, weight decay applies, the count advances), as the
-    JAX step does; nothing waits for the device to decide it."""
+    JAX step does; nothing waits for the device to decide it. With a process
+    group the batch is this rank's slice and the logs are the global batch's."""
     E = cfg.num_kpts * (cfg.num_kpts - 1) // 2
 
     def step(state: GMWState, batch: Mapping, cls_w: float, reg_w: float) -> Dict[str, torch.Tensor]:
@@ -112,23 +137,27 @@ def make_gmw_train_step(cfg: GMWConfig, model: G.GMW):
                                                batch["pred_rot"], cfg.topk)
             model.train()
             model.zero_grad(set_to_none=True)
-            reg_weights, P = model(batch["kpts_2d"], batch["kpts_3d"])
+            net = model if state.ddp is None else state.ddp
+            reg_weights, P = net(batch["kpts_2d"], batch["kpts_3d"])
             eye = torch.eye(E, device=state.device)  # broadcast over the batch
             cls_loss = G.correspondence_loss(P, eye)
             reg_loss, pred_depth = G.compute_reg_loss(pre_depths, reg_weights, batch["gt_depth"],
                                                       good_idx)
             total = cls_w * cls_loss + reg_w * reg_loss
             total.backward()
-            finite = torch.isfinite(total)
+            mae = (torch.abs(pred_depth - batch["gt_depth"]) / batch["gt_depth"]).mean()
+            logs = torch.stack([total, cls_loss, reg_loss, mae]).detach()
+            if state.process_group is not None:  # the ranks' means, averaged
+                logs = all_reduce_sum(logs, state.process_group) / dist.get_world_size(
+                    state.process_group)
+            finite = torch.isfinite(logs[0])
             for p in model.parameters():
                 p.grad = torch.where(finite, p.grad, torch.zeros_like(p.grad))
             for group in state.optimizer.param_groups:
                 group["lr"] = state.schedule(state.step)
             state.optimizer.step()
             state.step += 1
-        mae = (torch.abs(pred_depth - batch["gt_depth"]) / batch["gt_depth"]).mean()
-        return {"loss": total.detach(), "cls_loss": cls_loss.detach(),
-                "reg_loss": reg_loss.detach(), "depth_MAE": mae.detach()}
+        return dict(zip(("loss", "cls_loss", "reg_loss", "depth_MAE"), logs.unbind()))
 
     return step
 

@@ -24,6 +24,7 @@ import torch
 
 from ..config import Config
 from ..models.detector import KeypointDetector
+from ..models.gmw import lecun_normal_
 from ..models.layers import DCN
 from ..models.predictor import Converter_key2channel
 from ..ops import codec
@@ -55,31 +56,38 @@ def build_detector(cfg: Config, device: Union[str, torch.device, None] = None,
 
 @torch.no_grad()
 def init_weights(model: KeypointDetector, gen: torch.Generator) -> None:
-    """Redraw every weight from ``gen``: He-normal convs (each is followed by
-    BN and ReLU), LeCun-normal 1x1 output heads, tiny uncertainty heads,
-    zero biases but the class head's focal prior, zero offset convs (the
-    module's own init), unit BN with zero running mean, and the bilinear
-    upsampling kernels kept."""
+    """Redraw every weight from ``gen`` from the distribution that the JAX
+    package's ``model.init`` gives it (flax's defaults): every conv of the
+    trunk, the projections, the heads and ``EdgeFusion`` :func:`lecun_normal_`
+    (``nn.Conv``'s default), every DCN kernel uniform in +-1/sqrt(fan_in)
+    (``variance_scaling(1/3, "fan_in", "uniform")``), the uncertainty heads
+    a normal of variance 1e-4 / fan_avg (``uncertainty_init``), zero biases
+    but the class head's focal prior, zero offset convs (the module's own
+    init), unit BN with zero running mean, and the bilinear upsampling
+    kernels kept."""
     heads = model.heads
     head = model.cfg.model.head
-    std = {id(heads.class_head[3]): 1.0 / heads.class_head[3].in_channels ** 0.5}
+    small = {}
     for group, convs in zip(head.regression_heads, heads.reg_heads):
         for key, conv in zip(group, convs):
             if "uncertainty" in key and head.uncertainty_init:
-                std[id(conv)] = (1e-4 / ((conv.in_channels + conv.out_channels) / 2)) ** 0.5
-            else:
-                std[id(conv)] = 1.0 / conv.in_channels ** 0.5
+                small[id(conv)] = (1e-4 / ((conv.in_channels + conv.out_channels) / 2)) ** 0.5
     skip = set()
     for mod in model.modules():
         if isinstance(mod, DCN):
             skip.add(id(mod.conv_offset_mask))
     for mod in model.modules():
-        if isinstance(mod, (DCN, torch.nn.Conv2d, torch.nn.Conv1d)) and id(mod) not in skip:
-            fan_in = mod.weight[0].numel()
-            s = std.get(id(mod), (2.0 / fan_in) ** 0.5)
-            mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) * s)
-            if mod.bias is not None and mod is not heads.class_head[3]:
-                mod.bias.zero_()
+        if not isinstance(mod, (DCN, torch.nn.Conv2d, torch.nn.Conv1d)) or id(mod) in skip:
+            continue
+        if isinstance(mod, DCN):
+            bound = 1.0 / mod.weight[0].numel() ** 0.5
+            mod.weight.copy_(torch.rand(mod.weight.shape, generator=gen) * (2 * bound) - bound)
+        elif id(mod) in small:
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) * small[id(mod)])
+        else:
+            lecun_normal_(mod.weight, gen)
+        if mod.bias is not None and mod is not heads.class_head[3]:
+            mod.bias.zero_()
 
 
 def postprocess(cfg: Config, predictions: Dict[str, torch.Tensor], calib_P: torch.Tensor,

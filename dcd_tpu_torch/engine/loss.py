@@ -16,13 +16,24 @@ weight. The normalisation is the reference's:
 As in the JAX package, the gt/2d/3d edge-depth variants (:378-380) and the
 shapely 3D IoU (:485-491), which feed only debugging logs, are left out;
 the depth-MAE observables (:546-578) are kept.
+
+In data-parallel training each process holds a slice of the global batch,
+and the JAX loss, one program over the global batch, divides by global
+counts: ``B``, ``instance_num`` and the mask sums of the 2D and 3D objects,
+the extra keypoints and the valid and invalid pair depths. Given a process
+group, :func:`compute_losses` sums those counts over it (one all-reduce of
+a small vector) and returns each term as this rank's share of the global
+term: the sum of the shares over the group is the JAX term. (The focal
+loss's positive count is returned by ``penalty_reduced_focal_loss`` but
+enters no term, in JAX as here.)
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..models.predictor import Converter_key2channel
@@ -44,12 +55,16 @@ def _ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 
 
 def compute_losses(cfg: Config, predictions: Dict[str, torch.Tensor],
-                   targets: Dict[str, torch.Tensor]
+                   targets: Dict[str, torch.Tensor],
+                   process_group: Optional[dist.ProcessGroup] = None,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(total loss, loss terms, log terms) of the dense head outputs
     ``predictions`` ({"cls": (B, Ho, Wo, C), "reg": (B, Ho, Wo, R)}) against
     the collated ``targets`` of :mod:`dcd_tpu_torch.data.target_encoder`,
-    tensors on the predictions' device."""
+    tensors on the predictions' device. With ``process_group`` the batch is
+    this rank's slice of the global batch, every denominator is the global
+    one, and every returned value is this rank's share of the global value
+    (module docstring)."""
     head = cfg.model.head
     k2c = Converter_key2channel(head.regression_heads, head.regression_channels)
     w = dict(zip(head.loss_names, head.init_loss_weight))
@@ -61,13 +76,11 @@ def compute_losses(cfg: Config, predictions: Dict[str, torch.Tensor],
     B = pred_hm.shape[0]
     M = cfg.datasets.max_objects
     K = B * M
-    batch_weight = B * cfg.model.batch_weight_factor
 
     # ---------------- heatmap ----------------
     hm_target = targets["hm"].permute(0, 2, 3, 1)  # stored CHW
     hm_loss_raw, _ = L.penalty_reduced_focal_loss(pred_hm, hm_target, head.loss_penalty_alpha,
                                                   head.loss_beta)
-    hm_loss = w["hm_loss"] * hm_loss_raw / batch_weight
 
     # ---------------- object slots ----------------
     def flat(name):
@@ -129,6 +142,22 @@ def compute_losses(cfg: Config, predictions: Dict[str, torch.Tensor],
     pairs_all, pairs_mask = codec.decode_pairs_kpts_depth(
         pred_ek2_img, pred_ek3, gt_rotys, safe_P, training=True, kpts_2d_mask=ek2_mask,
         pairs_topk=head.pairs_topk, clamp=head.pairs_depth_clamp)
+    ek3_mask = find_pcl[:, None] * m3d[:, None] * torch.ones_like(ek3[..., 0])
+    pm_valid = pairs_mask * find_pcl[:, None] * m3d[:, None]
+    pm_invalid = (1.0 - pairs_mask) * find_pcl[:, None] * m3d[:, None]
+
+    # ---------------- denominators: this batch's, or the global batch's ----------------
+    if process_group is None:
+        batch_weight = B * cfg.model.batch_weight_factor
+        n2d, n3d, n_ek2, n_ek3 = m2d.sum(), m3d.sum(), ek2_mask.sum(), ek3_mask.sum()
+        n_pv, n_pi = pm_valid.sum(), pm_invalid.sum()
+    else:
+        counts = torch.stack([m3d.new_tensor(float(B)), m2d.sum(), m3d.sum(), ek2_mask.sum(),
+                              ek3_mask.sum(), pm_valid.sum(), pm_invalid.sum()]).detach()
+        dist.all_reduce(counts, group=process_group)
+        batch_weight = counts[0] * cfg.model.batch_weight_factor
+        n2d, n3d, n_ek2, n_ek3, n_pv, n_pi = counts[1:]
+    hm_loss = w["hm_loss"] * hm_loss_raw / batch_weight
 
     # ---------------- boxes ----------------
     gt_locations = codec.decode_location(centers, gt_offset3d, gt_depths, safe_P, pad_size, down)
@@ -148,7 +177,7 @@ def compute_losses(cfg: Config, predictions: Dict[str, torch.Tensor],
     tgt_reg2d = torch.cat([centers - boxes2d[:, :2], boxes2d[:, 2:] - centers], dim=1)
     reg2d_losses, ious2d = L.iou_loss(pred_reg2d, tgt_reg2d, head.loss_type[2])
     loss_dict["bbox_loss"] = w["bbox_loss"] * _masked_sum(reg2d_losses, m2d) / batch_weight
-    log_dict["2D_IoU"] = _ratio(_masked_sum(ious2d, m2d), m2d.sum())
+    log_dict["2D_IoU"] = _ratio(_masked_sum(ious2d, m2d), n2d)
 
     # ---------------- direct depth ----------------
     depth_loss = w["depth_loss"] * torch.abs(pred_direct_depth - gt_depths)
@@ -193,24 +222,20 @@ def compute_losses(cfg: Config, predictions: Dict[str, torch.Tensor],
     loss_dict["keypoint_depth_loss"] = keypoint_depth_loss / batch_weight
 
     # ---------------- extra keypoints ----------------
-    instance_num = m3d.sum()
-    scale = instance_num / batch_weight
+    scale = n3d / batch_weight  # instance_num / batch_weight
     ek2_l1 = L.reg_weighted_l1_loss(pred_ek2, ek2[..., :2], gt_depths)
     ek2_sum = _masked_sum(w["extra_kpts_2d_loss"] * ek2_l1, ek2_mask)
-    loss_dict["extra_kpts_2d_loss"] = _ratio(ek2_sum, ek2_mask.sum()) * scale
-    ek3_mask = find_pcl[:, None] * m3d[:, None] * torch.ones_like(ek3[..., 0])
+    loss_dict["extra_kpts_2d_loss"] = _ratio(ek2_sum, n_ek2) * scale
     ek3_l1 = torch.abs(pred_ek3 - ek3).sum(dim=2)
     ek3_sum = _masked_sum(w["extra_kpts_3d_loss"] * ek3_l1, ek3_mask)
-    loss_dict["extra_kpts_3d_loss"] = _ratio(ek3_sum, ek3_mask.sum()) * scale
+    loss_dict["extra_kpts_3d_loss"] = _ratio(ek3_sum, n_ek3) * scale
 
     # ---------------- pair depths ----------------
     wpd = w["pairs_kpts_depth_loss"]
-    pm_valid = pairs_mask * find_pcl[:, None] * m3d[:, None]
-    pm_invalid = (1.0 - pairs_mask) * find_pcl[:, None] * m3d[:, None]
     pd_l1_valid = torch.abs(pairs_all - tgt_kd) * wpd
     pd_l1_invalid = torch.abs(pairs_all.detach() - tgt_kd) * wpd
-    valid_term = _ratio(_masked_sum(pd_l1_valid, pm_valid), pm_valid.sum())
-    invalid_term = _ratio(_masked_sum(pd_l1_invalid, pm_invalid), pm_invalid.sum())
+    valid_term = _ratio(_masked_sum(pd_l1_valid, pm_valid), n_pv)
+    invalid_term = _ratio(_masked_sum(pd_l1_invalid, pm_invalid), n_pi)
     if head.modify_invalid_keypoint_depth:
         loss_dict["pairs_kpts_depth_loss"] = (valid_term + invalid_term) * scale
     else:
@@ -219,14 +244,13 @@ def compute_losses(cfg: Config, predictions: Dict[str, torch.Tensor],
 
     # ---------------- MAE observables (detector_loss.py:546-580) ----------------
     safe_gt = torch.clamp(gt_depths, min=1e-3)
-    n3d = m3d.sum()
     log_dict["depth_MAE"] = _ratio(_masked_sum(torch.abs(pred_direct_depth - gt_depths) / safe_gt,
                                                m3d), n3d)
     kpt_mae = torch.abs(pred_kpt_depths - tgt_kd) / safe_gt[:, None]
     for j, name in enumerate(["center_MAE", "keypoint_02_MAE", "keypoint_13_MAE"]):
         log_dict[name] = _ratio(_masked_sum(kpt_mae[:, j], m3d), n3d)
     pairs_mae = torch.abs(pairs_all - tgt_kd) / safe_gt[:, None]
-    log_dict["extra_all_MAE"] = _ratio(_masked_sum(pairs_mae, pm_valid), pm_valid.sum())
+    log_dict["extra_all_MAE"] = _ratio(_masked_sum(pairs_mae, pm_valid), n_pv)
     edge_mae = torch.abs(pred_corner_depth - gt_depths) / safe_gt
     log_dict["edges_MAE"] = _ratio(_masked_sum(edge_mae, m3d), n3d)
 

@@ -26,6 +26,18 @@ running statistics alone (``models/layers.py::frozen_running_stats``), so
 the step equals the one without remat. The trainer starts from seeded
 random weights, with the ImageNet DLA-34 trunk of
 ``cfg.model.pretrain_path`` loaded over them when that names a local file.
+
+Given a process group (``build_trainer(..., process_group=...)``, one
+process per card, :mod:`dcd_tpu_torch.parallel`), the step is data-parallel
+as the JAX package's over its ``data`` mesh: each rank holds its slice of
+the global batch (``parallel.shard_batch``), BN takes the global batch's
+moments, the loss divides by the global batch's counts and each rank's
+objective is its share of the global loss times the group's size, so that
+``DistributedDataParallel``'s mean of the gradients is the gradient of the
+global loss; the clip and the update follow the reduction, as optax's
+follow the psum. The logs are the global ones. With A microbatches the
+first A - 1 backward passes run under ``no_sync`` and one all-reduce
+follows the last.
 """
 
 from __future__ import annotations
@@ -33,15 +45,20 @@ from __future__ import annotations
 import contextlib
 import os
 from dataclasses import dataclass
-from typing import Dict, Iterator, Mapping, Union
+from typing import Dict, Iterator, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..models.detector import KeypointDetector
-from ..models.layers import frozen_running_stats
+from ..models.dla import Tree
+from ..models.layers import frozen_running_stats, use_process_group
+from ..parallel.mesh import all_reduce_sum, replicate
 from ..utils.checkpoint import load_torch_dla34
 from .infer import build_detector, resolve_device
 from .loss import compute_losses
@@ -56,6 +73,38 @@ class Trainer:
     device: torch.device
     # run each step in :func:`deterministic_algorithms` (repeatable steps)
     deterministic: bool = True
+    # data parallelism: the group, and the model's DDP wrapper
+    process_group: Optional[dist.ProcessGroup] = None
+    ddp: Optional[DistributedDataParallel] = None
+
+
+class _Forward(nn.Module):
+    """The detector's train-mode forward, recomputed in the backward with
+    ``remat``: the module that DDP wraps, so that the recomputation stays
+    inside one DDP forward."""
+
+    def __init__(self, model: KeypointDetector, remat: bool):
+        super().__init__()
+        self.model = model
+        self.remat = remat
+
+    def forward(self, images, edge_indices, edge_len):
+        if not self.remat:
+            return self.model(images, edge_indices, edge_len)
+        return checkpoint(self.model, images, edge_indices, edge_len, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              frozen_running_stats(self.model)))
+
+
+def unused_in_training(model: KeypointDetector) -> List[str]:
+    """Names of the parameters that a training step gives no gradient: the
+    projection of each inner DLA tree, which computes a residual that only
+    leaves use (``models/dla.py::Tree``; its BN statistics still move)."""
+    names = []
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, Tree) and mod.levels > 1 and mod.project is not None:
+            names += [f"{prefix}.project.{n}" for n, _ in mod.project.named_parameters()]
+    return names
 
 
 @contextlib.contextmanager
@@ -83,7 +132,8 @@ def _step_mode(trainer: Trainer):
 
 
 def build_trainer(cfg: Config, device: Union[str, torch.device, None] = None, seed: int = 0,
-                  iters_per_epoch: int = 1000) -> Trainer:
+                  iters_per_epoch: int = 1000,
+                  process_group: Optional[dist.ProcessGroup] = None) -> Trainer:
     """The detector in train mode on ``device`` (``cuda`` unless the caller
     names another; raises without a card), with weights drawn from ``seed``
     as :func:`build_detector` draws them, and its optimizer.
@@ -108,13 +158,30 @@ def build_trainer(cfg: Config, device: Union[str, torch.device, None] = None, se
     ``cfg.model.fp16`` trains with bf16 activations and fp32 parameters,
     ``cfg.model.remat`` recomputes each microbatch's forward in the backward
     (module docstring).
+
+    With ``process_group`` every rank starts from rank 0's weights and
+    buffers, BN reduces its moments over the group, and the model is wrapped
+    in ``DistributedDataParallel`` (buffers not broadcast: BN's statistics
+    agree already; the parameters of :func:`unused_in_training` left out of
+    the reduction). ``trainer.model`` stays the detector.
     """
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = resolve_device(device)
     model = build_detector(cfg, dev, seed).train()
     if cfg.model.pretrain and cfg.model.pretrain_path is not None:
         load_torch_dla34(model, cfg.model.pretrain_path)
-    return Trainer(cfg, model, Optimizer(cfg, model, iters_per_epoch), dev)
+    trainer = Trainer(cfg, model, Optimizer(cfg, model, iters_per_epoch), dev)
+    if process_group is not None:
+        replicate(model, process_group)
+        use_process_group(model, process_group)
+        forward = _Forward(model, bool(cfg.model.remat))
+        DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
+            forward, [f"model.{n}" for n in unused_in_training(model)])
+        trainer.ddp = DistributedDataParallel(
+            forward, device_ids=[dev.index] if dev.type == "cuda" else None,
+            process_group=process_group, broadcast_buffers=False)
+        trainer.process_group = process_group
+    return trainer
 
 
 def batch_to_device(batch: Mapping[str, Union[np.ndarray, torch.Tensor]],
@@ -132,8 +199,12 @@ def compute_gradients(trainer: Trainer, batch: Mapping) -> Dict[str, torch.Tenso
     """Forward, loss and backward of one step, microbatched by
     ``solver.grad_accum_steps``; the gradients are left in the parameters'
     ``.grad``. Returns the log terms averaged over the microbatches, the
-    total loss and the gradients' global norm (before the clip)."""
-    cfg, model = trainer.cfg, trainer.model
+    total loss and the gradients' global norm (before the clip). With a
+    process group ``batch`` is this rank's slice, and the gradients and logs
+    are those of the global batch (module docstring)."""
+    cfg, model, group = trainer.cfg, trainer.model, trainer.process_group
+    forward = trainer.ddp if trainer.ddp is not None else _Forward(model, bool(cfg.model.remat))
+    share = 1.0 if group is None else float(dist.get_world_size(group))
     batch = batch_to_device(batch, trainer.device)
     accum = max(int(cfg.solver.grad_accum_steps), 1)
     B = batch["images"].shape[0]
@@ -146,17 +217,17 @@ def compute_gradients(trainer: Trainer, batch: Mapping) -> Dict[str, torch.Tenso
     with _step_mode(trainer):
         for i in range(accum):
             mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-            if cfg.model.remat:
-                preds = checkpoint(model, mb["images"], mb["edge_indices"], mb["edge_len"],
-                                   use_reentrant=False,
-                                   context_fn=lambda: (contextlib.nullcontext(),
-                                                       frozen_running_stats(model)))
-            else:
-                preds = model(mb["images"], mb["edge_indices"], mb["edge_len"])
-            total, _, logs = compute_losses(cfg, preds, mb)
-            (total / accum).backward()
+            sync = trainer.ddp is None or i == accum - 1
+            with contextlib.nullcontext() if sync else trainer.ddp.no_sync():
+                preds = forward(mb["images"], mb["edge_indices"], mb["edge_len"])
+                total, _, logs = compute_losses(cfg, preds, mb, group)
+                (total * share / accum).backward()
             for k, v in {**logs, "total_loss": total}.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
+        if group is not None:  # the ranks' shares summed: the global logs
+            keys = list(sums)
+            summed = all_reduce_sum(torch.stack([sums[k] for k in keys]), group)
+            sums = dict(zip(keys, summed.unbind()))
         logs = {k: v / accum for k, v in sums.items()}
         logs["grad_norm"] = global_norm(p.grad for p in model.parameters() if p.grad is not None)
     return logs

@@ -116,16 +116,24 @@ def edge_expand(f: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, gen: torch.Generator) -> None:
+    """flax's ``lecun_normal`` drawn from ``gen`` into ``weight`` (out
+    channels first, so fan_in = ``weight[0].numel()``): a normal of std
+    sqrt(1 / fan_in) / 0.8796 truncated at two standard deviations, which
+    leaves std sqrt(1 / fan_in)."""
+    std = math.sqrt(1.0 / weight[0].numel()) / _TRUNCATED_STD
+    w = torch.empty(weight.shape)
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+    weight.copy_(w)
+
+
+@torch.no_grad()
 def init_weights(model: nn.Module, gen: torch.Generator) -> None:
     """flax ``Dense``'s initialisation drawn from ``gen``: every 1x1 conv's
-    weight from a normal of std sqrt(1 / fan_in) / 0.8796 truncated at two
-    standard deviations (``lecun_normal``), every bias zero."""
+    weight :func:`lecun_normal_`, every bias zero."""
     for mod in model.modules():
         if isinstance(mod, nn.Conv1d):
-            std = math.sqrt(1.0 / mod.in_channels) / _TRUNCATED_STD
-            w = torch.empty(mod.weight.shape)
-            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
-            mod.weight.copy_(w)
+            lecun_normal_(mod.weight, gen)
             mod.bias.zero_()
 
 

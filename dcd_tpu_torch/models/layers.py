@@ -13,21 +13,27 @@ every layer computes in the type of its input activations. The convs
 kernel and bias to that type, as a flax ``nn.Conv`` with ``dtype`` does; BN
 normalises with fp32 statistics and parameters and returns the input's
 type, as flax's ``BatchNorm`` does. With fp32 inputs every cast is a no-op.
+
+In data-parallel training (:func:`use_process_group`) BN takes its batch
+moments over the global batch, summed over the process group, as flax's
+``BatchNorm(axis_name="data")`` does over the JAX package's mesh.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dcn import deform_conv2d_clamped, deform_conv2d_gather
 from ..ops.dcn_cuda import DeformConv2dFunction
+from ..parallel.mesh import all_reduce_sum
 
 BN_EPS = 1e-5
 DCN_IMPLS = ("auto", "pallas", "dense", "gather", "plain")
@@ -77,6 +83,14 @@ def frozen_running_stats(model: nn.Module) -> Iterator[None]:
             m.stats_frozen = False
 
 
+def use_process_group(model: nn.Module, group: Optional[dist.ProcessGroup]) -> None:
+    """Every BN of ``model`` takes its training-mode moments over ``group``
+    (None: over its own batch, as before)."""
+    for m in model.modules():
+        if isinstance(m, _BiasedRunningVar):
+            m.process_group = group
+
+
 class _BiasedRunningVar:
     """Training-mode BN whose running variance takes the *biased* batch
     variance, as flax's ``BatchNorm`` (the JAX package's) does; torch's own
@@ -85,24 +99,58 @@ class _BiasedRunningVar:
     torch's own. ``momentum=None`` keeps torch's cumulative average. A bf16
     input is normalised in fp32 and its statistics taken in fp32 (flax's
     ``force_float32_reductions``); the output is bf16. Under
-    :func:`frozen_running_stats` the running statistics stay as they are."""
+    :func:`frozen_running_stats` the running statistics stay as they are.
+
+    With a ``process_group`` (:func:`use_process_group`) the training-mode
+    moments are those of the global batch, as flax's ``axis_name`` gives
+    them: each rank sums x and x^2 over its batch in fp32, one differentiable
+    all-reduce sums them (and the counts) over the group, so the gradient
+    carries the other ranks' terms, and the layer normalises with the global
+    mean and biased variance E[x^2] - E[x]^2 (flax's fast variance) and
+    moves the running statistics with them. Without a group, or in eval
+    mode, the layer is as above. (``nn.SyncBatchNorm`` keeps the unbiased
+    variance in its running statistics, so it is not used.)"""
 
     stats_frozen = False
+    process_group: Optional[dist.ProcessGroup] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._global_batch_norm(x)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         if self.stats_frozen:
             return out
         with torch.no_grad():
             dims = [0, *range(2, x.dim())]
             var, mean = torch.var_mean(x.float(), dims, correction=0)
-            self.num_batches_tracked += 1
-            m = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
-            self.running_mean.lerp_(mean, m)
-            self.running_var.lerp_(var, m)
+            self._update_running(mean, var)
         return out
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.num_batches_tracked += 1
+        m = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
+        self.running_mean.lerp_(mean, m)
+        self.running_var.lerp_(var, m)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        C = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = (1, C) + (1,) * (x.dim() - 2)
+        x32 = x.float()
+        count = x32.new_full((1,), x32.numel() // C)
+        sums = all_reduce_sum(torch.cat([x32.sum(dims), (x32 * x32).sum(dims), count]),
+                              self.process_group, differentiable=True)
+        n = sums[2 * C]
+        mean = sums[:C] / n
+        var = torch.clamp(sums[C:2 * C] / n - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        out = (x32 - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+        if not self.stats_frozen:
+            with torch.no_grad():
+                self._update_running(mean.detach(), var.detach())
+        return out.to(x.dtype)
 
 
 class BatchNorm2d(_BiasedRunningVar, nn.BatchNorm2d):

@@ -2,8 +2,10 @@
 learn?
 
 The twin of the JAX package's ``tools/convergence_run.py``: the same flags
-and configuration, and ``--device`` (``cuda`` unless asked for ``cpu``;
-with no card it raises). ``dgde_run_config()`` at full size (384x1280, the
+and configuration, ``--device`` (``cuda`` unless asked for ``cpu``; with no
+card it raises) and ``--seed`` (the initial weights' seed; 0, the default,
+as the JAX run's key), so that runs from several draws show how far one
+run's numbers are noise. ``dgde_run_config()`` at full size (384x1280, the
 shipped head widths) with bf16 activations (``fp16``), pretrain off,
 ``remat`` from the flag, warmup of 100 steps to a base LR of 3e-4 and
 ``--accum`` microbatches per step; a pool of ``--pool`` synthetic scenes
@@ -210,6 +212,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--out_md", default=os.path.join(OUT_DIR, "CONVERGENCE.md"))
     ap.add_argument("--out_jsonl", default=os.path.join(OUT_DIR, "metrics.jsonl"))
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    ap.add_argument("--seed", type=int, default=0, help="the initial weights' seed")
     return ap.parse_args(argv)
 
 
@@ -220,7 +223,7 @@ def run(args: argparse.Namespace, cfg: Optional[Config] = None, **scene_kw) -> d
     cfg = run_config(args.accum, args.remat) if cfg is None else cfg
     print(f"# encoding {args.pool} scenes...", file=sys.stderr)
     batches = make_batches(cfg, args.pool, args.batch, **scene_kw)
-    trainer = build_trainer(cfg, args.device, seed=0, iters_per_epoch=len(batches))
+    trainer = build_trainer(cfg, args.device, seed=args.seed, iters_per_epoch=len(batches))
     batches = [batch_to_device(b, trainer.device) for b in batches]  # the pool stays on the card
     device_name = (torch.cuda.get_device_name(trainer.device) if trainer.device.type == "cuda"
                    else "cpu")

@@ -10,8 +10,22 @@ working directory); ``--finetune CKPT`` (the weights and BN buffers of CKPT,
 the update count from 0, no update of ``cfg.model.freeze_names``); ``--vis N``
 with ``--eval`` (``OUTPUT/vis/<id>.png`` for the first N images: the
 detections and the ground truth in the frame and in a bird's-eye panel). It
-takes the same flags, and one more: ``--device`` (``cuda`` unless asked for
-``cpu``; with no card it raises).
+takes the same flags, and two more: ``--device`` (``cuda`` unless asked for
+``cpu``; with no card it raises) and ``--dist_backend``.
+
+Several processes (``--coordinator host:port --num_processes N
+--process_id I``, one command per process) train data-parallel, as the JAX
+command line does over its global mesh: they rendezvous through
+:func:`dcd_tpu_torch.parallel.initialize_distributed`, process I runs on card
+``I % device_count`` (NCCL by default; ``--dist_backend gloo`` puts several
+ranks on one card or runs them on the CPU), reads its slice of each global
+batch of ``SOLVER.IMS_PER_BATCH`` images and trains with BN and the loss
+over the global batch (``engine/train.py``). Only process 0 logs to the
+console and the log file, writes the metrics and saves checkpoints;
+``--resume`` loads that file on every rank. ``--eval`` writes each rank's
+share of the test split's txt files, waits for every rank, and process 0
+computes the AP; ``--generate_for_GMW`` runs on process 0 while the others
+wait.
 
     python -m dcd_tpu_torch.tools.train_dgde --data_root KITTI/training --output logs
     python -m dcd_tpu_torch.tools.train_dgde --data_root ... --output logs --eval --resume
@@ -19,9 +33,9 @@ takes the same flags, and one more: ``--device`` (``cuda`` unless asked for
     python -m dcd_tpu_torch.tools.train_dgde --config finetune.yaml --data_root ... --output ft \
         --finetune logs/ckpt/model_final.pt
     python -m dcd_tpu_torch.tools.train_dgde --data_root ... --output logs --eval --resume --vis 4
+    python -m dcd_tpu_torch.tools.train_dgde --data_root ... --output logs \
+        --coordinator localhost:29500 --num_processes 2 --process_id 0   # and 1, in another shell
 
-Refused with ``NotImplementedError``: the multi-host flags (``--coordinator``,
-``--num_processes`` > 1, ``--process_id`` > 0: distribution is not ported).
 An orbax checkpoint of the JAX package cannot be read (``--ckpt DIR`` raises).
 """
 
@@ -41,12 +55,13 @@ import torch
 from ..config import Config, dgde_run_config, load_yaml_config
 from ..data.gen_data import (GenDataInferWriter, GenDataTrainWriter, normalize_batch_kpts,
                              normalize_kpts_2d)
-from ..data.kitti_dataset import KITTIDataset, _load_image, make_data_loader
+from ..data.kitti_dataset import InferenceSampler, KITTIDataset, _load_image, make_data_loader
 from ..data.target_encoder import EncodedSample, collate
 from ..engine.gen import make_gen_step
 from ..engine.infer import format_kitti_lines, infer
 from ..engine.train import Trainer, build_trainer, train_step
 from ..evaluation import evaluate_from_files
+from ..parallel import barrier, default_backend, initialize_distributed, shutdown
 from ..utils.checkpoint import Checkpointer, load_torch_dgde
 from ..utils.logger import setup_logger
 from ..utils.metrics import MetricLogger
@@ -89,17 +104,36 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         "whole batch (detector_loss.py:150)",
     )
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--coordinator", default=None, help="not ported; raises")
-    p.add_argument("--num_processes", type=int, default=1, help="only 1 is ported")
-    p.add_argument("--process_id", type=int, default=0, help="only 0 is ported")
+    # multi-host
+    p.add_argument("--coordinator", default=None, help="host:port of process 0's rendezvous")
+    p.add_argument("--num_processes", type=int, default=1)
+    p.add_argument("--process_id", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    p.add_argument("--dist_backend", default=None, choices=("nccl", "gloo"),
+                   help="the process group's backend: nccl on cuda, gloo on cpu by default")
     return p.parse_args(argv)
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    if args.coordinator or args.num_processes != 1 or args.process_id != 0:
-        raise NotImplementedError("the multi-host flags are not ported: the port runs one "
-                                  "process on one card")
+def check_multihost_flags(args: argparse.Namespace) -> None:
+    """Refuse inconsistent multi-host flags before any rendezvous."""
+    if args.num_processes < 1:
+        raise ValueError(f"--num_processes {args.num_processes} is not a count of processes")
+    if not 0 <= args.process_id < args.num_processes:
+        raise ValueError(f"--process_id {args.process_id} is not in [0, {args.num_processes})")
+    if args.num_processes > 1 and not args.coordinator:
+        raise ValueError(f"--num_processes {args.num_processes} needs --coordinator host:port")
+
+
+def process_device(args: argparse.Namespace) -> torch.device:
+    """``--device``; under several processes on cuda, card
+    ``process_id % device_count``."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and device.index is None and args.num_processes > 1:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA was asked for and no CUDA device is available; "
+                               "pass --device cpu to run on the CPU")
+        device = torch.device("cuda", args.process_id % torch.cuda.device_count())
+    return device
 
 
 def make_config(args: argparse.Namespace) -> Config:
@@ -120,19 +154,34 @@ def run(args: argparse.Namespace) -> Dict:
     """Train, evaluate or generate as the flags say. Returns what the run
     did: the trainer, and the iterations' logs, the evaluation's speed and
     AP, or the gen files' paths."""
-    refuse_unported(args)
+    check_multihost_flags(args)
+    device = process_device(args)
+    group = initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                   backend=args.dist_backend or default_backend(device),
+                                   device=device)
+    try:
+        return _run(args, device, group)
+    finally:
+        if group is not None:
+            shutdown()
+
+
+def _run(args: argparse.Namespace, device: torch.device, group) -> Dict:
     cfg = make_config(args)
-    logger = setup_logger(LOGGER, cfg.output_dir)
-    device = torch.device(args.device)
+    rank = args.process_id if group is not None else 0
+    logger = setup_logger(LOGGER, cfg.output_dir, rank)
     card = torch.cuda.get_device_name(device) if device.type == "cuda" and torch.cuda.is_available() else "-"
     logger.info(f"env: python {platform.python_version()} | torch {torch.__version__} | "
-                f"device {device} ({card}) | {platform.platform()}")
+                f"device {device} ({card}) | processes {args.num_processes} | "
+                f"{platform.platform()}")
 
-    loader = make_data_loader(cfg, args.data_root, is_train=True)
+    loader = make_data_loader(cfg, args.data_root, is_train=True, process_index=rank,
+                              process_count=args.num_processes)
     iters_per_epoch = max(len(loader.dataset) // cfg.solver.ims_per_batch, 1)
     max_iter = args.num_iters or int(cfg.solver.max_epochs * iters_per_epoch)
 
-    trainer = build_trainer(cfg, device=device, seed=args.seed, iters_per_epoch=iters_per_epoch)
+    trainer = build_trainer(cfg, device=device, seed=args.seed, iters_per_epoch=iters_per_epoch,
+                            process_group=group)
     ckptr = Checkpointer(os.path.join(cfg.output_dir, "ckpt"))
     if args.resume and ckptr.has_checkpoint():
         ckptr.load(trainer)
@@ -151,17 +200,22 @@ def run(args: argparse.Namespace) -> Dict:
         ckptr.load(trainer, args.ckpt)
 
     if args.eval:
-        return dict(trainer=trainer, **run_eval(cfg, args, trainer.model, logger))
+        return dict(trainer=trainer, **run_eval(cfg, args, trainer.model, logger, rank))
     if args.generate_for_GMW:
-        return dict(trainer=trainer, **generate_for_gmw(cfg, args, trainer.model, logger))
+        out = generate_for_gmw(cfg, args, trainer.model, logger) if rank == 0 else {}
+        barrier(group)
+        return dict(trainer=trainer, **out)
     return dict(trainer=trainer, **train(cfg, trainer, loader, ckptr, iters_per_epoch, max_iter,
-                                         logger))
+                                         logger, rank))
 
 
 def train(cfg: Config, trainer: Trainer, loader, ckptr: Checkpointer, iters_per_epoch: int,
-          max_iter: int, logger) -> Dict:
+          max_iter: int, logger, rank: int = 0) -> Dict:
+    """The iteration loop. Under several processes every rank steps on its
+    slice of each global batch; rank 0 alone writes metrics and
+    checkpoints."""
     meters = MetricLogger()
-    writer = MetricWriter(os.path.join(cfg.output_dir, "writer"))
+    writer = MetricWriter(os.path.join(cfg.output_dir, "writer"), process_index=rank)
     save_every = int(cfg.solver.save_checkpoint_epoch_interval * iters_per_epoch)
     start = trainer.optimizer.count
     # continue the deterministic sample stream where the restored step left off
@@ -183,12 +237,14 @@ def train(cfg: Config, trainer: Trainer, loader, ckptr: Checkpointer, iters_per_
             if iteration % 10 == 0:
                 logger.info(f"iter {iteration}/{max_iter}  {meters}")
                 writer.write_scalars(iteration, logs, prefix="train/")
-            if save_every > 0 and (iteration + 1) % save_every == 0:
+            if save_every > 0 and (iteration + 1) % save_every == 0 and rank == 0:
                 ckptr.save(f"model_checkpoint_{(iteration + 1) // iters_per_epoch}", trainer)
     finally:
         batches.close()  # stops the loader's threads
         writer.close()
-    ckptr.save("model_final", trainer)
+    if rank == 0:
+        ckptr.save("model_final", trainer)
+    barrier(trainer.process_group)
     logger.info("training done")
     return dict(iterations=iterations)
 
@@ -204,13 +260,17 @@ def _infer_sample(cfg: Config, model, s: EncodedSample) -> Dict[str, np.ndarray]
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def run_eval(cfg: Config, args: argparse.Namespace, model, logger) -> Dict:
+def run_eval(cfg: Config, args: argparse.Namespace, model, logger, rank: int = 0) -> Dict:
     """Inference over the test split one image at a time into
     ``OUTPUT/inference/data/<id>.txt``, then the KITTI AP protocol on those
     files and ``OUTPUT/inference/result.json``. A first call is made and
     kept out of the timer (builds and first launches). With ``--vis N`` the
-    first N images' panels go to ``OUTPUT/vis/<id>.png``, outside the timer."""
+    first N images' panels go to ``OUTPUT/vis/<id>.png``, outside the timer.
+    Under several processes each rank infers its shard of the split
+    (``InferenceSampler``) and writes its files; after a barrier rank 0
+    computes the AP on all of them, as the JAX command line does."""
     ds = KITTIDataset(cfg, args.data_root, is_train=False, augment=False)
+    shard = list(InferenceSampler(len(ds), rank, args.num_processes))
     out_dir = os.path.join(cfg.output_dir, "inference", "data")
     os.makedirs(out_dir, exist_ok=True)
     vis_dir = os.path.join(cfg.output_dir, "vis")
@@ -220,9 +280,9 @@ def run_eval(cfg: Config, args: argparse.Namespace, model, logger) -> Dict:
     model.eval()
     device = next(model.parameters()).device
     timer = Timer(device)
-    for i in range(len(ds)):
+    for i in shard:
         s = ds.get_sample(i)
-        if i == 0:
+        if i == shard[0]:
             _infer_sample(cfg, model, s)
         timer.tic()
         out = _infer_sample(cfg, model, s)
@@ -240,6 +300,11 @@ def run_eval(cfg: Config, args: argparse.Namespace, model, logger) -> Dict:
                 gt_rows=gt_rows_from_objects(ds._load_objects(s.img_id) or []))
     images_per_s = 1.0 / max(timer.average_time, 1e-9)
     logger.info(f"inference: {images_per_s:.1f} img/s")
+    barrier()  # every rank's txt files are on disk
+    out = dict(images=len(shard), images_per_s=images_per_s,
+               seconds_per_image=timer.average_time, out_dir=out_dir, vis=vis_paths)
+    if rank != 0:
+        return out
     t0 = time.perf_counter()
     result, ret = evaluate_from_files(
         os.path.join(args.data_root, "label_2"),
@@ -253,8 +318,7 @@ def run_eval(cfg: Config, args: argparse.Namespace, model, logger) -> Dict:
     ap = {k: float(v) for k, v in ret.items()}
     with open(os.path.join(cfg.output_dir, "inference", "result.json"), "w") as f:
         json.dump(ap, f, indent=1)
-    return dict(images=len(ds), images_per_s=images_per_s, seconds_per_image=timer.average_time,
-                ap=ap, result=result, ap_seconds=ap_seconds, out_dir=out_dir, vis=vis_paths)
+    return dict(out, ap=ap, result=result, ap_seconds=ap_seconds)
 
 
 def generate_for_gmw(cfg: Config, args: argparse.Namespace, model, logger) -> Dict:

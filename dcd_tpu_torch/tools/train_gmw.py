@@ -27,9 +27,14 @@ The initial weights are flax's initialisers drawn from ``torch.Generator``
 ``--seed``, so one seed gives other weights than JAX's PRNG: to start both
 packages from the same weights, convert JAX's into a checkpoint
 (``utils/weights.py::from_jax_gmw_params``, :meth:`Checkpointer.save_gmw`) and
-``--resume``. The port runs on one card: the JAX command line shards the
-batch over every local device (one device on one card); distribution is not
-ported.
+``--resume``.
+
+As the JAX command line shards each batch over its local devices, the port
+trains data-parallel over the local cards: the largest count of cards that
+divides ``--batch_size``, one process per card (NCCL), each on its slice of
+every batch (:func:`data_parallel_size`, :func:`rank_worker`). Process 0
+alone logs, validates and saves. On one card, or on the CPU, it is one
+process, as before.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ..data.gen_data import load_gen_data_infer, load_gen_data_train
 from ..engine.gmw_train import (GMWConfig, create_gmw_state, loss_weights_for_epoch,
                                 make_gmw_predict, make_gmw_train_step, rescale_location)
 from ..evaluation import evaluate_from_files
+from ..parallel import barrier, launch, shard_batch
 from ..utils.checkpoint import Checkpointer
 from ..utils.logger import setup_logger
 from ..utils.metrics import MetricLogger
@@ -173,13 +179,53 @@ def run_validation(args: argparse.Namespace, cfg: GMWConfig, predict, logger,
     return dict(out, metric=-mae)
 
 
+def data_parallel_size(device: str, batch_size: int) -> int:
+    """The processes of a training run: the largest count of local cards
+    that divides ``batch_size`` (the JAX command line's rule for its local
+    devices); 1 on the CPU."""
+    import torch
+
+    n = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+    while n > 1 and batch_size % n:
+        n -= 1
+    return max(n, 1)
+
+
 def run(args: argparse.Namespace) -> Dict:
     """Train and validate, or only validate with ``--evaluate``. Returns the
     model and its state, the epoch it started after, each epoch's LR, loss
     weights, batch order, steps (losses and seconds, each step waiting for
-    its losses) and validation, the best epoch and the final validation."""
+    its losses) and validation, the best epoch and the final validation.
+    Over several cards (:func:`data_parallel_size`) the training runs in one
+    process per card, and the return is process 0's, without the model and
+    its state."""
+    n = 1 if args.evaluate else data_parallel_size(args.device, args.batch_size)
+    if n == 1:
+        return _run(args)
+    return launch(rank_worker, n, (args,), backend="nccl")[0]
+
+
+def rank_worker(rank: int, world: int, args: argparse.Namespace) -> Dict:
+    """Process ``rank`` of a data-parallel run, inside its process group:
+    :func:`run`'s return on rank 0 without the model and its state (None on
+    the other ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    device = args.device
+    if torch.device(device).type == "cuda":
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+    out = _run(args, device=device, group=dist.group.WORLD, rank=rank, world=world)
+    barrier()
+    if rank != 0:
+        return None
+    return {k: v for k, v in out.items() if k not in ("model", "state")}
+
+
+def _run(args: argparse.Namespace, device: Optional[str] = None, group=None, rank: int = 0,
+         world: int = 1) -> Dict:
     cfg = make_config(args)
-    logger = setup_logger(LOGGER, args.log_dir)
+    logger = setup_logger(LOGGER, args.log_dir, rank)
 
     train = None
     n_train = steps_per_epoch = 0
@@ -190,7 +236,9 @@ def run(args: argparse.Namespace) -> Dict:
         logger.info(f"train objects: {n_train} ({steps_per_epoch} steps/epoch)")
 
     model, state = create_gmw_state(cfg, args.seed, steps_per_epoch=max(steps_per_epoch, 1),
-                                    device=args.device)
+                                    device=device or args.device, process_group=group)
+    if world > 1:
+        logger.info(f"data-parallel over {world} processes")
     ckptr = Checkpointer(os.path.join(args.log_dir, "ckpt"))
     start_epoch = 0
     if args.resume and ckptr.has_checkpoint():
@@ -201,7 +249,7 @@ def run(args: argparse.Namespace) -> Dict:
     predict = make_gmw_predict(cfg, model)
     rng = np.random.RandomState(args.seed)
     meters = MetricLogger()
-    have_val = bool(args.val_data and os.path.exists(args.val_data))
+    have_val = rank == 0 and bool(args.val_data and os.path.exists(args.val_data))
     best_metric, best_epoch = float("-inf"), None
     epochs = []
 
@@ -216,6 +264,8 @@ def run(args: argparse.Namespace) -> Dict:
                 batch = {"kpts_2d": train["kpts_2d"][idx], "kpts_3d": train["kpts_3d"][idx],
                          "pred_rot": train["pred_rot"][idx, 0],
                          "gt_depth": train["gt_location"][idx, 2]}
+                if world > 1:
+                    batch = shard_batch(batch, rank, world)
                 t0 = time.perf_counter()
                 logs = {k: float(v) for k, v in step(state, batch, cls_w, reg_w).items()}
                 record["steps"].append(dict(logs, seconds=time.perf_counter() - t0))
@@ -230,10 +280,11 @@ def run(args: argparse.Namespace) -> Dict:
                     best_metric, best_epoch = metric, epoch
                     ckptr.save_gmw("model_best", model, state, epoch)
                     logger.info(f"epoch {epoch}: new best ({metric:.4f})")
-            if args.save_every > 0 and epoch % args.save_every == 0:
+            if args.save_every > 0 and epoch % args.save_every == 0 and rank == 0:
                 ckptr.save_gmw(f"checkpoint_epoch_{epoch}", model, state, epoch)
             epochs.append(record)
-        ckptr.save_gmw("checkpoint_final", model, state, args.epochs)
+        if rank == 0:
+            ckptr.save_gmw("checkpoint_final", model, state, args.epochs)
 
     # final validation: refine depths and rewrite KITTI txts (GMW/main.py:486-564)
     final = run_validation(args, cfg, predict, logger) if have_val else None

@@ -8,6 +8,8 @@ checkpointer (``dcd_tpu/utils/checkpoint.py:24-112``; the reference's
 same names: ``model_checkpoint_N``, ``model_final`` and the ``last_checkpoint``
 tag file that ``--resume`` reads. Restored into a trainer built from the same
 config, the next steps are bitwise those the saved trainer would have taken.
+Under several processes the command lines save on process 0 alone (the
+ranks hold the same weights), and every rank restores from its file.
 The GMW command line saves its model, AdamW state, update count and epoch
 the same way (:meth:`Checkpointer.save_gmw`), under the JAX GMW command
 line's names (``checkpoint_epoch_N``, ``model_best``, ``checkpoint_final``).

@@ -10,8 +10,9 @@ JAX's forward + ``postprocess`` + ``format_kitti_lines`` on the same weights
 (the port's state dict through the reference importer) and images, and JAX's
 ``evaluate_from_files`` on the port's txt files must give the port's
 ``result.json``. Also: the checkpoint round trip, the reference DGDE and
-ImageNet DLA-34 ``.pth`` loaders against JAX's importers, and the multi-host
-flags the twin refuses (``--finetune`` and ``--vis``: tests/test_torch_finetune.py).
+ImageNet DLA-34 ``.pth`` loaders against JAX's importers, and inconsistent
+multi-host flags refused before any rendezvous (``--finetune`` and ``--vis``:
+tests/test_torch_finetune.py; several processes: tests/test_torch_parallel_cli.py).
 """
 
 import dataclasses
@@ -40,6 +41,9 @@ from dcd_tpu_torch.utils.weights import from_jax_variables, load_state
 from dcd_tpu_torch.utils.writer import MetricWriter
 from torch_port_common import CHANNELS, HEAD_CHANNELS, HEIGHT, WIDTH, numpy_variables, small_configs
 
+# Threshold 0 and no uncertainty as confidence: every one of the 50 top-K rows
+# is valid and compared. (With flax's initialisation the depth uncertainty
+# after two iterations gives every row a confidence of 0, in both packages.)
 SMALL_YAML = f"""\
 INPUT:
   HEIGHT_TRAIN: {HEIGHT}
@@ -53,6 +57,7 @@ SOLVER:
   IMS_PER_BATCH: 2
 TEST:
   DETECTIONS_THRESHOLD: 0.0
+  UNCERTAINTY_AS_CONFIDENCE: false
 """
 TRAIN_SEEDS, VAL_SEEDS = (0, 1, 2, 3), (4, 5, 6, 7)
 
@@ -183,7 +188,8 @@ def jax_rows(cli):
     jcfg, _ = small_configs()
     trainer = cli["eval"]["trainer"]
     tcfg = trainer.cfg
-    jcfg = dataclasses.replace(jcfg, test=dataclasses.replace(jcfg.test, detections_threshold=0.0))
+    jcfg = dataclasses.replace(jcfg, test=dataclasses.replace(
+        jcfg.test, detections_threshold=0.0, uncertainty_as_confidence=False))
     jmodel, template = numpy_variables(jcfg)
     sd = {k: v.numpy() for k, v in trainer.model.state_dict().items()
           if not k.endswith("num_batches_tracked")}
@@ -259,9 +265,15 @@ def test_cli_generate_for_gmw_writes_both_jsons(cli):
     assert all(np.isfinite(v).all() for v in arrays.values())
 
 
-@pytest.mark.parametrize("flags", [["--coordinator", "localhost:1234"], ["--num_processes", "2"]])
-def test_cli_refuses_unported_flags(flags):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("flags", [["--num_processes", "2"],
+                                   ["--coordinator", "localhost:1234", "--num_processes", "2",
+                                    "--process_id", "2"]])
+def test_cli_rejects_inconsistent_multihost_flags(flags, monkeypatch):
+    def no_rendezvous(*args, **kwargs):
+        raise AssertionError("the flags were not checked before the rendezvous")
+
+    monkeypatch.setattr(train_dgde, "initialize_distributed", no_rendezvous)
+    with pytest.raises(ValueError, match="--coordinator|--process_id"):
         train_dgde.run(train_dgde.parse_args(["--device", "cpu", *flags]))
 
 

@@ -126,7 +126,8 @@ def test_port_imports_no_jax_and_nothing_of_dcd_tpu():
         "data/kitti_dataset", "data/multiscale", "utils/checkpoint", "utils/logger",
         "utils/metrics", "utils/writer", "utils/timer", "tools/train_gmw", "tools/demo",
         "utils/visualize", "utils/profiling", "tools/oracle_inject", "tools/convergence_run",
-        "tools/offset_stats", "tools/bf16_rows")} <= names
+        "tools/offset_stats", "tools/bf16_rows", "parallel/mesh", "parallel/workers",
+        "tools/multiprocess_smoke")} <= names
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in BANNED, f"{path.relative_to(ROOT)} imports {mod}"
