@@ -17,7 +17,7 @@ Phases, each printing one line with its own seconds:
    TF32 off) and bf16 (<= 2e-2), twice (bitwise equal), and with NaN
    offsets (the tap is dropped); timed with CUDA events around 5
    back-to-back calls through the Python wrapper, whose host time they
-   include (median over 10 turns of plain, kernel, kernel, C entry, plain
+   include (median over 6 turns of plain, kernel, kernel, C entry, plain
    after a warm-up; "C entry" is the kernel's C entry point called on
    arguments checked once, without the wrapper's Python), and beside it, as
    a yardstick only, a bf16 ``torch.matmul`` of pre-gathered (P, 9 Cin)
@@ -81,7 +81,7 @@ Phases, each printing one line with its own seconds:
    gradient for every parameter and a non-zero one for every DCN
    weight and offset conv; a second trainer from the same seed must reach
    bitwise equal losses and parameters in 3 steps; the parity check again,
-   at non-zero offsets, gradients to 1e-3; the step time (median of 5) without and with the
+   at non-zero offsets, gradients to 1e-3; the step time (median of 3) without and with the
    deterministic mode (``Trainer.deterministic``), and one profiled step.
 7b. train_bf16: ``build_trainer`` with ``cfg.model.fp16`` at full width,
    batch 2: the step's losses and gradients (all, and by part of the
@@ -93,7 +93,20 @@ Phases, each printing one line with its own seconds:
    the same seed bitwise equal; ``cfg.model.remat`` bitwise the same step,
    with 32 forward launches and every ``num_batches_tracked`` at 1; after
    the step, kernels against the plain DCN (BF16_STEP_*); the step time
-   (median of 5) with and without the deterministic mode, one profiled step.
+   (median of 3) with and without the deterministic mode, one profiled step.
+7d. deeper_head: ``dgde_run_config()`` with ``head.deeper_head`` (a conv +
+   BN + act, DCN + BN + act stem in front of each branch) at full width and
+   depth, 384x1280, batch 2: 18 ``dcn_fwd_f32`` launches per forward, the
+   kernels against the plain DCN on the dense and lazy heads and the rows
+   (PATH_TOL); one train step at the seeded weights within phase 7's step-0
+   limit and, with every BN in its linear range and the terms built on the
+   edge-pair depths at weight 0 (PAIR_DEPTH_TERMS), within phase 7's
+   STEP_GRAD_TOL; the whole linear-range step within the pair rules,
+   beside the plain step's own change under rounding-size changes of the
+   DCNs' outputs; 18 launches of each fp32 entry point
+   per step; a second trainer from the same seed bitwise equal. Phases 3
+   and 6 check the stems' DCN shape (HEAD_SHAPES: 256->256 at 96x320) at
+   batch 2: K1 in fp32 and bf16, K2 and K3 on fp32 and bf16 inputs.
 7c. oracle: ``tools/oracle_inject.py``'s sweep at 0 and 1 px on
    ORACLE_SCENES held-out scenes with ``postprocess`` on the card and on the
    CPU: equal AP rows and valid rows, the rows within ORACLE_TOL.
@@ -124,7 +137,10 @@ Phases, each printing one line with its own seconds:
    shape) against its plain version at the 7 shapes, timed. 4 training
    iterations at full width, ``--batch_size 2``: 16 launches each of
    ``dcn_fwd_f32``, ``dcn_bwd_pom`` and ``dcn_bwd_x`` per iteration, finite
-   losses, data and step time per iteration; 2 iterations, ``model_final``,
+   losses, data and step time per iteration; the same 4 with the target
+   encoder's native calls swapped for their numpy versions, bitwise equal,
+   their data and step times, and ``encode_targets`` alone per scene by each
+   path; 2 iterations, ``model_final``,
    ``--resume``, 2 more: losses, parameters, BN buffers, AdamW state and step
    bitwise those of the 4 straight. ``--eval --resume --vis 2``: a txt per
    val id, ``result.json``, 16 launches per image and the warm-up, images/s
@@ -207,6 +223,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
+import unittest.mock
 from pathlib import Path
 
 # the train steps' deterministic mode refuses cuBLAS unless this names a
@@ -225,6 +243,7 @@ from dcd_tpu_torch.data.gen_data import (GenDataInferWriter, GenDataTrainWriter,
                                          load_gen_data_train, normalize_batch_kpts, normalize_kpts_2d)
 from dcd_tpu_torch.data.kitti_dataset import KITTIDataset
 from dcd_tpu_torch.data.synthetic import make_scene, write_kitti_tree
+from dcd_tpu_torch.data import heatmap, target_encoder
 from dcd_tpu_torch.data.target_encoder import collate, encode_targets
 from dcd_tpu_torch.engine.gen import make_gen_step
 from dcd_tpu_torch.engine.gmw_train import (GMWConfig, create_gmw_state, loss_weights_for_epoch,
@@ -259,6 +278,31 @@ DCN_SHAPES = [
     (128, 64, 48, 160, 4),
     (64, 64, 96, 320, 5),
 ]
+# the deeper head's (head.deeper_head) two stems' DCNs at 384x1280: 18 K1
+# launches per forward instead of 16, and 18 of each of K2 and K3 per step
+HEAD_SHAPES = [(256, 256, 96, 320, 2)]
+DEEPER_HEAD_LAUNCHES = 18
+# timing depth, cut to make room for the deeper head's phase (turns of the
+# K1 and K2/K3 timings 10 -> 6 and 3 -> 2, timed train steps 5 -> 3); the
+# checks are unchanged
+KERNEL_TURNS, BWD_TURNS, STEP_TIMINGS = 6, 2, 3
+# the deeper head's step 0 with every BN in its linear range: the kernels
+# part from the plain DCN by 2.03e-2 of a pair head's gradient scale
+# (heads.reg_features.9.1.weight), all of it from the two terms built on the
+# edge-pair depths (corner_loss 9.2e-3, pairs_kpts_depth_loss 1.11e-2); the
+# other terms together part by 6.67e-5. The plain step on its own, with the
+# DCNs' outputs times (1 + eps randn) at the kernels' rounding size, reaches
+# the same readings bit for bit in 3 of 8 draws (eps 1e-6 and 4e-6, the
+# stems' or every DCN's): a switch of the pair solve that rounding flips,
+# whose gradient reaches the trunk through the shared regression stem
+# (tests/deeper_head_step_probe.py; NVIDIA H100 80GB HBM3, 700.00 W). So the
+# linear-range step is held to phase 7's STEP_GRAD_TOL with those two terms'
+# weights at 0 (PAIR_DEPTH_TERMS), and the whole step to the pair rules of
+# step_parity, with the plain step's own spread under two of those draws
+# (DEEPER_HEAD_OWN_DRAWS) printed beside it
+PAIR_DEPTH_TERMS = ("pairs_kpts_depth_loss", "corner_loss")
+DEEPER_HEAD_OWN_EPS = 4e-6
+DEEPER_HEAD_OWN_DRAWS = (("stems", 0), ("all", 1))
 FP32_TOL, BF16_TOL, PATH_TOL = 1e-4, 2e-2, 1e-4
 # bf16 against fp32 heads on the same features, and the bf16 kernel against
 # the plain form over the whole forward: the share of the 50 peaks (and of
@@ -493,11 +537,12 @@ def phase_kernel():
     """K1 at the 7 shapes: fp32 and bf16 against the plain version, bitwise
     repeatable, a NaN-offset case; times at batch 2 (beside the plain
     version) and at batch 64 (checked on images 0-1), and the yardstick of
-    the contraction alone in cuBLAS."""
+    the contraction alone in cuBLAS. The deeper head's shape at batch 2
+    only; its rows are returned apart."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     lib = cuda_build.library()
-    rows = []
-    for cin, cout, h, w, count in DCN_SHAPES:
+    rows, head_rows = [], []
+    for cin, cout, h, w, count in DCN_SHAPES + HEAD_SHAPES:
         t0 = time.perf_counter()
         row = dict(cin=cin, cout=cout, h=h, w=w, batch=BATCH, count=count)
         x, off, mask, weight, bias = dcn_inputs(cin, cout, h, w, gen)
@@ -521,7 +566,7 @@ def phase_kernel():
             plain = lambda: deform_conv2d_clamped(*a, RADIUS)
             kernel = lambda: dcn_cuda.deform_conv2d(*a, RADIUS)
             times = timed_turns([("plain", plain), ("kernel", kernel), ("kernel", kernel),
-                                 ("c_entry", c_entry_call(*a)), ("plain", plain)], 10)
+                                 ("c_entry", c_entry_call(*a)), ("plain", plain)], KERNEL_TURNS)
             b_ms, b_by = bound_ms(cin, cout, h, w, BATCH, dt)
             if dt == torch.float32:
                 row["fp32_bound_fma_ms"] = bound_ms_fp32_fma(cin, cout, h, w, BATCH)[0]
@@ -533,6 +578,18 @@ def phase_kernel():
         wmat = args[torch.bfloat16][3].reshape(9 * cin, cout)
         row["bf16_contraction_cublas_ms"] = timed_turns([("mm", lambda: torch.matmul(cols, wmat))], 5)["mm"]
         del x, off, mask, weight, bias, args, cols
+        if (cin, cout, h, w, count) in HEAD_SHAPES:
+            head_rows.append(row)
+            say("kernel", time.perf_counter() - t0,
+                f"deeper head {cin}->{cout} @ {h}x{w} x{count}, tile {row['tile']}: fp32 err "
+                f"{row['fp32_max_abs_err']:.3g} (max {row['fp32_scale']:.3g}), bf16 err "
+                f"{row['bf16_max_abs_err']:.3g} (max {row['bf16_scale']:.3g}), NaN offsets "
+                f"{row['fp32_nan_max_abs_err']:.3g}/{row['bf16_nan_max_abs_err']:.3g}; bitwise "
+                f"repeatable; batch {BATCH}: fp32 {row['fp32_ms']:.4f} ms (plain "
+                f"{row['fp32_plain_ms']:.4f}, bound {row['fp32_bound_ms']:.4f}), bf16 "
+                f"{row['bf16_ms']:.4f} ms (plain {row['bf16_plain_ms']:.4f}, bound "
+                f"{row['bf16_bound_ms']:.4f} {row['bf16_bound_by']})")
+            continue
 
         # the bench protocol's batch: times, and images 0-1 against the plain
         # version (at 64 the plain version needs ~18 GB per bilinear corner)
@@ -571,7 +628,7 @@ def phase_kernel():
             f"ms (bound {row['b64_fp32_bound_ms']:.4f}), bf16 {row['b64_bf16_ms']:.4f} ms (bound "
             f"{row['b64_bf16_bound_ms']:.4f} {row['b64_bf16_bound_by']}, contraction only, cuBLAS "
             f"{row['b64_bf16_contraction_cublas_ms']:.4f})")
-    return rows
+    return rows, head_rows
 
 
 def median_ms(fn, n=5):
@@ -966,13 +1023,16 @@ def bwd_contractions_cublas_ms(cin, cout, h, w, batch, gen):
 
 
 def phase_backward():
+    """K2 and K3 at the 7 shapes at batch 2 and 8, and at the deeper head's
+    shape at batch 2 (its rows returned apart); K3's radii."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for cin, cout, h, w, count in DCN_SHAPES:
         for batch in BWD_BATCHES:
             rows.append(backward_shape(cin, cout, h, w, count, batch, gen))
             torch.cuda.empty_cache()
-    return rows, backward_radius()
+    head_rows = [backward_shape(*shape, BATCH, gen) for shape in HEAD_SHAPES]
+    return rows, head_rows, backward_radius()
 
 
 def backward_shape(cin, cout, h, w, count, batch, gen):
@@ -1039,7 +1099,7 @@ def backward_shape(cin, cout, h, w, count, batch, gen):
     for fn in fns.values():
         fn()
     times = {name: [] for name in fns}
-    for _ in range(3):
+    for _ in range(BWD_TURNS):
         for name in ("p2", "k2", "k2", "p2", "p3", "k3", "k3", "p3",
                      "p2b", "k2b", "k2b", "p2b", "p3b", "k3b", "k3b", "p3b"):
             times[name].append(cuda_ms(fns[name]))
@@ -1170,7 +1230,7 @@ def _pair_heads(cfg):
     return tuple(f"heads.{kind}.{gi}." for gi in groups for kind in ("reg_features", "reg_heads"))
 
 
-def step_parity(trainer, batch, grad_tol, any_bias_by_weight=False):
+def step_parity(trainer, batch, grad_tol, any_bias_by_weight=False, first="auto", perturb=None):
     """Forward, loss and backward of one step from one deep copy of the
     trainer, with the kernels and with the plain DCN. Loss terms must agree
     to STEP_LOSS_TOL relative and gradients to ``grad_tol`` of each
@@ -1184,22 +1244,34 @@ def step_parity(trainer, batch, grad_tol, any_bias_by_weight=False):
     ``any_bias_by_weight`` every bias so (with every BN in its linear range
     the next BN removes a trunk BN's shift: its gradient is rounding noise,
     as ``parallel.workers.gradient_errors`` states). Returns the largest
-    errors of each kind, the largest offset the DCNs emitted and the share
-    of offsets beyond the clamp."""
-    out, offsets = {}, []
-    for impl in ("auto", "dense"):
+    errors of each kind (and the gradient's name), the largest offset the
+    DCNs emitted and the share of offsets beyond the clamp. With
+    ``first="dense"`` and ``perturb=(eps, where, draw)`` the first step is
+    the plain one with the outputs of the DCNs that ``where`` names
+    (``stems``: the deeper head's, ``all``) times (1 + eps randn) from seed
+    ``100 + draw``: the model's own conditioning at the kernels' rounding
+    size, against which the kernels' gap can be read."""
+    out, offsets = [], []
+    for impl, change in ((first, perturb), ("dense", None)):
         t = copy.deepcopy(trainer)
         set_dcn_impl(t.model, impl)
         hooks = [m.conv_offset_mask.register_forward_hook(
             lambda _m, _i, o: offsets.append(o[:, :18].detach().abs().flatten()))
-            for m in t.model.modules() if isinstance(m, DCN) and impl == "auto"]
+            for m in t.model.modules() if isinstance(m, DCN) and not out]
+        if change is not None:
+            eps, where, draw = change
+            gen = torch.Generator(device=next(t.model.parameters()).device).manual_seed(100 + draw)
+            hooks += [m.register_forward_hook(
+                lambda _m, _i, o: o * (1 + eps * torch.randn(o.shape, generator=gen, device=o.device)))
+                for name, m in t.model.named_modules()
+                if isinstance(m, DCN) and (where == "all" or "_head_pre" in name)]
         logs = compute_gradients(t, batch)
         for h in hooks:
             h.remove()
         grads = {n: p.grad for n, p in t.model.named_parameters() if p.grad is not None}
-        out[impl] = ({k: float(v) for k, v in logs.items()}, grads)
+        out.append(({k: float(v) for k, v in logs.items()}, grads))
         del t
-    (lk, gk), (lp, gp) = out["auto"], out["dense"]
+    (lk, gk), (lp, gp) = out
     offsets = torch.cat(offsets)
     worst = dict(loss=0.0, pair_loss=0.0, grad=0.0, pair_heads_fro=0.0, bn_bias=0.0,
                  max_offset=float(offsets.max()), clamped_share=float((offsets > RADIUS).float().mean()))
@@ -1229,7 +1301,9 @@ def step_parity(trainer, batch, grad_tol, any_bias_by_weight=False):
         else:
             rel = diff / max(float(want.abs().max()), 1e-30)
             key, ok = "grad", rel <= grad_tol
-        worst[key] = max(worst[key], rel)
+        if rel > worst[key]:
+            worst[key] = rel
+            worst[f"{key}_name"] = n
         if not ok:
             raise AssertionError(f"step parity: gradient of {n}: {key} error {rel}")
     return worst
@@ -1326,9 +1400,9 @@ def phase_train():
     t0 = time.perf_counter()
     # what the deterministic mode costs: the same steps without it, then back
     trainer.deterministic = False
-    loose_ms, loose_all = median_ms(lambda: train_step(trainer, batch))
+    loose_ms, loose_all = median_ms(lambda: train_step(trainer, batch), STEP_TIMINGS)
     trainer.deterministic = True
-    step_ms, step_all = median_ms(lambda: train_step(trainer, batch))
+    step_ms, step_all = median_ms(lambda: train_step(trainer, batch), STEP_TIMINGS)
     prof = device_breakdown(lambda: train_step(trainer, batch))
     kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(prof["by_kind"].items()))
     say("train", time.perf_counter() - t0,
@@ -1464,9 +1538,9 @@ def phase_train_bf16():
     if not (vs_plain["loss_rms"] <= BF16_STEP_LOSS_RMS and vs_plain["grad_fro"] <= BF16_STEP_GRAD_FRO):
         raise AssertionError(f"bf16 step, kernels against the plain DCN: {vs_plain}")
     trainer.deterministic = False
-    loose_ms, loose_all = median_ms(lambda: train_step(trainer, batch))
+    loose_ms, loose_all = median_ms(lambda: train_step(trainer, batch), STEP_TIMINGS)
     trainer.deterministic = True
-    step_ms, step_all = median_ms(lambda: train_step(trainer, batch))
+    step_ms, step_all = median_ms(lambda: train_step(trainer, batch), STEP_TIMINGS)
     prof = device_breakdown(lambda: train_step(trainer, batch))
     kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(prof["by_kind"].items()))
     say("train_bf16", time.perf_counter() - t0,
@@ -1481,6 +1555,126 @@ def phase_train_bf16():
 
 
 ORACLE_SCENES, ORACLE_NOISE = 4, (0.0, 1.0)
+
+
+def phase_deeper_head():
+    """The deeper head (``head.deeper_head``: a conv + BN + act, DCN + BN +
+    act stem in front of each branch) at full width and depth, 384x1280,
+    batch 2 of phase 7's scenes. An fp32 forward with trained-checkpoint
+    offset statistics and calibrated BN: 18 ``dcn_fwd_f32`` launches, and
+    the kernels against the plain DCN on the dense heads, the lazy path's
+    peaks and heads, and the rows (PATH_TOL of scale). One fp32 train step
+    from the seeded weights: the kernels against the plain DCN within phase
+    7's step-0 limit (STEP0_GRAD_TOL) and, with every BN in its linear
+    range and the terms built on the edge-pair depths at weight 0, within
+    phase 7's STEP_GRAD_TOL; the whole linear-range step within
+    step_parity's pair rules, beside the plain step's own change under
+    rounding-size changes of the DCNs' outputs (PAIR_DEPTH_TERMS); 18 launches
+    each of ``dcn_fwd_f32``, ``dcn_bwd_pom_f32`` and ``dcn_bwd_x_f32``,
+    finite losses and gradients, and a second trainer from the same seed
+    bitwise equal."""
+    t0 = time.perf_counter()
+    base = dgde_run_config()
+    cfg = with_model(base, head=dataclasses.replace(base.model.head, deeper_head=True))
+    gen = torch.Generator().manual_seed(0)
+    model = build_detector(cfg, device="cuda", seed=0)
+    realistic_offsets(model, gen)
+    batch = collate(scenes(cfg))
+    dev = {k: torch.from_numpy(np.asarray(batch[k])).cuda() for k in
+           ("images", "edge_indices", "edge_len", "calib_P_full", "pad_size", "image_size")}
+    args = (dev["images"], dev["edge_indices"].long(), dev["edge_len"].long())
+    post = (dev["calib_P_full"].float(), dev["pad_size"].float(), dev["image_size"].float())
+    calibrate_batch_norm(model, *args)
+    dcn_cuda.reset_launch_counts()
+    with torch.no_grad():
+        dense_k = model(*args)
+    torch.cuda.synchronize()
+    fwd = dict(dcn_cuda.deform_conv2d.launches_by_kernel)
+    if fwd.get("dcn_fwd_f32") != DEEPER_HEAD_LAUNCHES or fwd_launches() != DEEPER_HEAD_LAUNCHES:
+        raise AssertionError(f"the deeper head's fp32 forward launched {fwd}, not dcn_fwd_f32 "
+                             f"{DEEPER_HEAD_LAUNCHES} times")
+    with torch.no_grad():
+        lazy_k = model(*args, lazy_topk=True)
+        rows_k = infer(model, *args, *post, cfg=cfg)
+        set_dcn_impl(model, "dense")
+        dense_p = model(*args)
+        lazy_p = model(*args, lazy_topk=True)
+        rows_p = infer(model, *args, *post, cfg=cfg)
+        set_dcn_impl(model, "auto")
+    errs = {f"dense_{k}": float((dense_k[k] - dense_p[k]).abs().max()) / float(dense_p[k].abs().max())
+            for k in ("cls", "reg")}
+    same_peaks = bool(torch.equal(lazy_k["points_xy"], lazy_p["points_xy"]))
+    for k in ("scores", "reg_pois"):
+        errs[f"lazy_{k}"] = (float((lazy_k[k] - lazy_p[k]).abs().max()) / float(lazy_p[k].abs().max())
+                             if same_peaks else float("inf"))
+    dk, dp = rows_k["dets"], rows_p["dets"]
+    errs["rows"] = float((dk - dp).abs().max()) / float(dp.abs().max())
+    same_valid = bool(torch.equal(rows_k["valid"], rows_p["valid"]))
+    if not same_peaks or not same_valid or max(errs.values()) > PATH_TOL:
+        raise AssertionError(f"deeper head, kernel vs plain forward: same peaks {same_peaks}, same "
+                             f"valid rows {same_valid}, rel errs {errs} (tol {PATH_TOL})")
+    say("deeper_head", time.perf_counter() - t0,
+        f"fp32 forward at batch {BATCH}: {fwd['dcn_fwd_f32']} dcn_fwd_f32 launches; kernel vs plain: "
+        f"same peaks and valid rows ({int(rows_k['valid'].sum())}), rel errs "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (tol {PATH_TOL})")
+    del model, dense_k, dense_p, lazy_k, lazy_p, rows_k, rows_p
+
+    t0 = time.perf_counter()
+    trainer = build_trainer(cfg, device="cuda", seed=0)
+    parity0 = step_parity(trainer, batch, STEP0_GRAD_TOL)
+    say("deeper_head", time.perf_counter() - t0, f"step 0 kernel vs plain: {parity0}")
+    # with every BN in its linear range: without the terms built on the
+    # edge-pair depths at phase 7's limit, and the whole step beside the
+    # plain step's own spread under rounding-size changes of the DCNs' outputs
+    t0 = time.perf_counter()
+    linear = copy.deepcopy(trainer)
+    linear_range_bn(linear.model)
+    head = cfg.model.head
+    no_pairs = copy.deepcopy(linear)
+    no_pairs.cfg = with_model(cfg, head=dataclasses.replace(head, init_loss_weight=tuple(
+        0.0 if n in PAIR_DEPTH_TERMS else w for n, w in zip(head.loss_names, head.init_loss_weight))))
+    parity0_no_pairs = step_parity(no_pairs, batch, STEP_GRAD_TOL, any_bias_by_weight=True)
+    del no_pairs
+    parity0_linear = step_parity(linear, batch, float("inf"), any_bias_by_weight=True)
+    own = {f"{where} {draw}": step_parity(linear, batch, float("inf"), any_bias_by_weight=True,
+                                          first="dense", perturb=(DEEPER_HEAD_OWN_EPS, where, draw))
+           for where, draw in DEEPER_HEAD_OWN_DRAWS}
+    del linear
+    say("deeper_head", time.perf_counter() - t0,
+        f"step 0 with every BN in its linear range, kernel vs plain, without "
+        f"{'/'.join(PAIR_DEPTH_TERMS)}: {parity0_no_pairs} (tol {STEP_GRAD_TOL}); the whole step: "
+        f"{parity0_linear}; the plain step against itself with the DCNs' outputs x "
+        f"(1 + {DEEPER_HEAD_OWN_EPS:g} randn): " + "; ".join(f"{k}: {v}" for k, v in own.items()))
+
+    t0 = time.perf_counter()
+    dcn_cuda.reset_launch_counts()
+    logs = {k: float(v) for k, v in train_step(trainer, batch).items()}
+    torch.cuda.synchronize()
+    step_launches = [fwd_launches(), *bwd_launches()]
+    by_entry = {k: v for k, v in launches_by_entry_point().items() if v}
+    if step_launches != [DEEPER_HEAD_LAUNCHES] * 3 or set(by_entry) != {
+            "dcn_fwd_f32", "dcn_bwd_pom_f32", "dcn_bwd_x_f32"}:
+        raise AssertionError(f"the deeper head's train step launched {by_entry}, not "
+                             f"{DEEPER_HEAD_LAUNCHES} of each fp32 entry point")
+    bad = [k for k, v in logs.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"deeper head step: non-finite {bad}")
+    check_gradients(trainer.model, 0)
+    twin = build_trainer(cfg, device="cuda", seed=0)
+    twin_logs = {k: float(v) for k, v in train_step(twin, batch).items()}
+    ours, theirs = trainer.model.state_dict(), twin.model.state_dict()
+    differ = [k for k in ours if not torch.equal(ours[k], theirs[k])]
+    if twin_logs != logs or differ:
+        raise AssertionError(f"deeper head: two steps from one seed differ: losses "
+                             f"{logs['total_loss']} vs {twin_logs['total_loss']}, {differ[:5]}")
+    del trainer, twin, ours, theirs
+    say("deeper_head", time.perf_counter() - t0,
+        f"one train step: launches {step_launches} (dcn_fwd, dcn_bwd_pom, dcn_bwd_x), total_loss "
+        f"{logs['total_loss']:.4f}, finite gradients; a second trainer from seed 0 bitwise equal")
+    return dict(forward_launches=fwd["dcn_fwd_f32"], forward_rel_errs=errs, parity_step0=parity0,
+                parity_step0_linear_bn_no_pair_depths=parity0_no_pairs,
+                parity_step0_linear_bn=parity0_linear, own_gap_linear_bn=own,
+                step_launches=step_launches, logs=logs)
 
 
 def phase_oracle():
@@ -2014,6 +2208,55 @@ def cli_gen_for_gmw(run, n_batches, n_val):
                 launches=launches)
 
 
+def numpy_pad_normalize(img, out_h, out_w, pad, mean, std):
+    """The native ``pad_normalize_image`` in numpy: ``target_encoder``'s
+    ``pad_image`` and ``normalize_image``'s arithmetic (bitwise equal,
+    tests/test_torch_native.py)."""
+    padded, at = target_encoder.pad_image(img, out_h, out_w)
+    if list(at) != [int(v) for v in pad]:
+        raise AssertionError(f"pad offsets {list(at)} and {list(pad)}")
+    x = padded.astype(np.float32) / 255.0
+    return (x - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+
+
+def cli_numpy_encoder(run, its, per_iter):
+    """The straight run again with the target encoder's native calls
+    (``data/native.py``) swapped for their numpy plain versions: the same
+    iterations bitwise, and the loader's data wait and the step beside the
+    native run's; and ``encode_targets`` alone on 8 scenes by each path."""
+    plain = types.SimpleNamespace(splat_batch=heatmap.splat_batch,
+                                  pad_normalize_image=numpy_pad_normalize)
+    n0 = len(per_iter)
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(target_encoder, "native", plain):
+        its_np = run("straight_numpy", "--num_iters", str(CLI_ITERS))["iterations"]
+    if per_iter[n0:] != [[16, 16, 16]] * CLI_ITERS:
+        raise AssertionError(f"launches per iteration with the numpy encoder {per_iter[n0:]}")
+    del per_iter[n0:]
+    if [it["logs"] for it in its_np] != [it["logs"] for it in its]:
+        raise AssertionError("the numpy encoder's iterations differ from the native encoder's")
+    cfg = dgde_run_config()
+    raw = [make_scene(seed=s, num_objs=6) for s in range(8)]
+    encode_ms = {}
+    for name, ns in (("native", target_encoder.native), ("numpy", plain)):
+        with unittest.mock.patch.object(target_encoder, "native", ns):
+            times = []
+            for scene in raw:
+                t1 = time.perf_counter()
+                encode_targets(*scene, cfg)
+                times.append(1e3 * (time.perf_counter() - t1))
+        encode_ms[name] = statistics.median(times)
+    out = dict(data_ms_median=statistics.median(1e3 * it["data"] for it in its_np[1:]),
+               step_ms_median=statistics.median(1e3 * (it["time"] - it["data"]) for it in its_np[1:]),
+               encode_ms=encode_ms)
+    say("cli", time.perf_counter() - t0,
+        f"{CLI_ITERS} iterations with the numpy encoder: bitwise the native run's; iterations "
+        f"1-{CLI_ITERS - 1}: data median {out['data_ms_median']:.2f} ms, step median "
+        f"{out['step_ms_median']:.2f} ms; encode_targets per 1242x375 scene of 6 cars, median of 8: "
+        f"native {encode_ms['native']:.2f} ms, numpy {encode_ms['numpy']:.2f} ms")
+    return out
+
+
 def write_cli_tree():
     """Phase 10's KITTI tree under build/, a fresh directory (host work: it
     runs beside ``nvcc``); returns its training root."""
@@ -2083,6 +2326,7 @@ def phase_cli(root):
             + ", ".join(f"{it['logs']['total_loss']:.4f}" for it in its)
             + f"; iterations 1-{CLI_ITERS - 1}: data median {statistics.median(data_ms[1:]):.2f} ms, "
             f"step median {statistics.median(step_ms[1:]):.2f} ms")
+        numpy_encoder = cli_numpy_encoder(run, its, per_iter)
 
         t0 = time.perf_counter()
         run("resumed", "--num_iters", str(CLI_RESUME_AT))
@@ -2226,6 +2470,7 @@ def phase_cli(root):
                 eval_rows=n_rows, batch1_kernel_vs_plain_rel_err=errs, ap_eval=eval_ap,
                 ap_seconds_eval=eval_secs, ap_seconds_labels=gt_secs, ap_labels=gt_ap,
                 gen_train_objects=n_obj, gen_infer_objects=len(img_idx), gen_launches=gen_launches,
+                numpy_encoder=numpy_encoder,
                 finetune=finetune, bf16=bf16, vis=vis, demo=demo_run, gmw_inputs=gmw_inputs)
 
 
@@ -2595,13 +2840,15 @@ def main():
         "tensor-core instructions in the SASS of each forward and backward kernel: "
         + ", ".join(f"{k} {v}" for k, v in mma.items()))
 
-    shapes = phase_kernel()
+    shapes, head_shapes = phase_kernel()
     main_path, ctx = phase_main_path()
     main_bf16 = phase_main_path_bf16(ctx)
     torch.cuda.empty_cache()
-    backward, radius = phase_backward()
+    backward, head_backward, radius = phase_backward()
     train = phase_train()
     train_bf16 = phase_train_bf16()
+    torch.cuda.empty_cache()
+    deeper_head = phase_deeper_head()
     torch.cuda.empty_cache()
     oracle = phase_oracle()
     gen, gen_ctx = phase_gen(ctx)
@@ -2617,6 +2864,9 @@ def main():
 
     def total(key):
         return sum(r[key] * r["count"] for r in shapes)
+
+    def head_total(key):
+        return sum(r[key] * r["count"] for r in head_shapes)
 
     # K1 in each precision: the fp32 forward's launches (main path) and the
     # bf16 forward's (main path in bf16), per forward at batch 2
@@ -2636,6 +2886,14 @@ def main():
                         key=lambda b: sum(r[f"{tag}_bound_ms"] * r["count"] for r in shapes
                                           if r[f"{tag}_bound_by"] == b)),
         "library_ms": None,
+        # the deeper head's forward (phase 7d): its 18 launches, and the
+        # stems' shape beside the 16 of the decoder
+        "deeper_head": {
+            "launches": deeper_head["forward_launches"] if tag == "fp32" else None,
+            "ms": total(f"{tag}_ms") + head_total(f"{tag}_ms"),
+            "plain_ms": total(f"{tag}_plain_ms") + head_total(f"{tag}_plain_ms"),
+            "bound_ms": total(f"{tag}_bound_ms") + head_total(f"{tag}_bound_ms"),
+            "max_abs_err": max(r[f"{tag}_max_abs_err"] for r in head_shapes)},
     } for name, tag, launches in (("dcn_fwd", "fp32", main_path["launches"]),
                                   ("dcn_fwd_bf16", "bf16", main_bf16["launches"]["dcn_fwd_bf16"]))]
     # K2 and K3 per train step at batch 2: the sum over the 16 DCN blocks;
@@ -2666,12 +2924,23 @@ def main():
                                 key=lambda b: sum(r[f"{key}{tag}_bound_ms"] * r["count"] for r in step_rows
                                                   if r[f"{key}{tag}_bound_by"] == b)),
                 "library_ms": None,
+                # the deeper head's step (phase 7d): 18 launches, the stems'
+                # shape beside the decoder's 16
+                "deeper_head": {
+                    "launches": deeper_head["step_launches"][1 if key == "pom" else 2] if not tag
+                    else None,
+                    **{f: sum(r[f"{key}{tag}_{suffix}"] * r["count"] for r in step_rows + head_backward)
+                       for f, suffix in (("ms", "ms"), ("plain_ms", "plain_ms"),
+                                         ("bound_ms", "bound_ms"))},
+                    "max_abs_err": max(r[errors][gname]["max_abs_err"] for r in head_backward
+                                       for gname in grads)},
             })
     say("done", time.perf_counter() - t0, "all phases passed")
     details = {"card": smi, "build_seconds": built["seconds"], "tensor_core_instructions": mma,
-               "shapes": shapes, "main_path": main_path, "main_path_bf16": main_bf16,
-               "backward": backward, "backward_radius": radius, "train": train,
-               "train_bf16": train_bf16, "oracle": oracle, "gen": gen, "gmw": gmw, "cli": cli,
+               "shapes": shapes, "head_shapes": head_shapes, "main_path": main_path,
+               "main_path_bf16": main_bf16, "backward": backward, "head_backward": head_backward,
+               "backward_radius": radius, "train": train, "train_bf16": train_bf16,
+               "deeper_head": deeper_head, "oracle": oracle, "gen": gen, "gmw": gmw, "cli": cli,
                "gmw_cli": gmw_cli, "dist": dist}
     # every profiled kernel by name goes to a file; the line keeps the top ones
     DETAILS_FILE.parent.mkdir(parents=True, exist_ok=True)

@@ -9,9 +9,11 @@ keypoints 2d/3d, Calib_P, find_pcl, depth masks, dimensions, locations,
 rotys, alphas, multi-bin orientations, offset_3D, reg/trunc masks,
 pad_size, edge_indices/edge_len, ori_mask).
 
-One difference from the JAX package: the heatmap splats go through the
-numpy functions of :mod:`.heatmap` (the JAX package's compiled splat, to
-which they are bit-compatible, is built for the machine it runs on).
+The heatmap splats and the image's pad + normalise go through the native
+encoder, ``csrc/heatmap_native.cc`` (:mod:`.native`), as the JAX package's
+go through its copy; the numpy functions (:func:`.heatmap.splat_batch`,
+:func:`pad_image` + :func:`normalize_image`) are its plain versions, bitwise
+equal (tests/test_torch_native.py).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 
 from ..config import TYPE_ID_CONVERSION, Config
 from . import heatmap as hm_coder
+from . import native
 from .augmentations import resize_scene
 from .edges import get_edge_indices
 from .kitti_geometry import Calibration, Object3d, approx_proj_center
@@ -61,14 +64,20 @@ class EncodedSample:
     image_size: Tuple[int, int]  # original (w, h) before padding
 
 
+def pad_offset(img_w: int, img_h: int, input_w: int, input_h: int) -> np.ndarray:
+    """(pad_x, pad_y): where the image's corner lands on the input canvas,
+    centred (reference kitti.py:262-272); the one place the offset is
+    decided, for the image, the targets and the native encoder."""
+    return np.array([(input_w - img_w) // 2, (input_h - img_h) // 2], dtype=np.int64)
+
+
 def pad_image(img: np.ndarray, input_height: int, input_width: int) -> Tuple[np.ndarray, np.ndarray]:
     """Center-pad to the fixed input resolution (reference kitti.py:262-272)."""
     h, w, c = img.shape
     out = np.zeros((input_height, input_width, c), dtype=img.dtype)
-    pad_y = (input_height - h) // 2
-    pad_x = (input_width - w) // 2
-    out[pad_y : pad_y + h, pad_x : pad_x + w] = img
-    return out, np.array([pad_x, pad_y], dtype=np.int64)
+    pad = pad_offset(w, h, input_width, input_height)
+    out[pad[1] : pad[1] + h, pad[0] : pad[0] + w] = img
+    return out, pad
 
 
 def normalize_image(img: np.ndarray, cfg: Config) -> np.ndarray:
@@ -109,7 +118,7 @@ def encode_targets(
     extra_n = cfg.model.head.extra_kpts_num
     n_kpts = extra_n + 10
 
-    padded, pad_size = pad_image(img, input_h, input_w)
+    pad_size = pad_offset(img_w, img_h, input_w, input_h)
 
     x_min, y_min = int(np.ceil(pad_size[0] / down)), int(np.ceil(pad_size[1] / down))
     x_max, y_max = (pad_size[0] + img_w - 1) // down, (pad_size[1] + img_h - 1) // down
@@ -316,7 +325,7 @@ def encode_targets(
                 trunc_mask[i] = float(approx_center)
 
     if splat_jobs:
-        hm_coder.splat_batch(
+        native.splat_batch(
             heat_map,
             np.array([j[0] for j in splat_jobs], np.int32),
             np.stack([j[1] for j in splat_jobs]).astype(np.int32),
@@ -354,7 +363,11 @@ def encode_targets(
         edge_len=np.array(edge_count, dtype=np.int32),
     )
 
-    image = normalize_image(padded, cfg)
+    # reference pad_image + ToTensor/Normalize (kitti.py:262-272,
+    # transforms.py:5-30) in one pass; a BGR flip is per pixel, so it
+    # commutes with both
+    image = native.pad_normalize_image(img[..., ::-1] if cfg.input.to_bgr else img, input_h,
+                                       input_w, pad_size, cfg.input.pixel_mean, cfg.input.pixel_std)
     return EncodedSample(image=image, targets=targets, img_id=img_id, calib=calib, image_size=(img_w, img_h))
 
 

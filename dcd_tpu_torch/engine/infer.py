@@ -58,8 +58,9 @@ def build_detector(cfg: Config, device: Union[str, torch.device, None] = None,
 def init_weights(model: KeypointDetector, gen: torch.Generator) -> None:
     """Redraw every weight from ``gen`` from the distribution that the JAX
     package's ``model.init`` gives it (flax's defaults): every conv of the
-    trunk, the projections, the heads and ``EdgeFusion`` :func:`lecun_normal_`
-    (``nn.Conv``'s default), every DCN kernel uniform in +-1/sqrt(fan_in)
+    trunk, the projections, the heads (the deeper head's stems too) and
+    ``EdgeFusion`` :func:`lecun_normal_` (``nn.Conv``'s default), every DCN
+    kernel (the decoder's and the deeper head's) uniform in +-1/sqrt(fan_in)
     (``variance_scaling(1/3, "fan_in", "uniform")``), the uncertainty heads
     a normal of variance 1e-4 / fan_avg (``uncertainty_init``), zero biases
     but the class head's focal prior, zero offset convs (the module's own

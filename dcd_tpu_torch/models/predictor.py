@@ -9,7 +9,13 @@ module names (``DGDE/model/head/detector_predictor.py:19-207``):
   ``reg_heads[g][k]``: a 1x1 conv per key (:80-102);
 * ``trunc_heatmap_conv`` / ``trunc_offset_conv``: edge fusion (:113-125,
   :172-196). Features on the boundary ring of the valid image go through
-  replicate-padded 1-D convs and are added back at the ring's pixels.
+  replicate-padded 1-D convs and are added back at the ring's pixels;
+* with ``head.deeper_head`` (:134-151), ``cls_head_pre`` and
+  ``reg_head_pre``: a stem of 3x3 conv + BN + act, then ``DCN`` + BN + act,
+  in front of the class and the regression branches
+  (``dcd_tpu/models/predictor.py:96-112``). The stem's DCN takes the
+  detector's ``dcn_impl`` and the JAX module's default clamp of 3 px, not
+  ``backbone.dcn_radius``.
 
 Features come in as NCHW; the outputs are NHWC, as the JAX package's.
 """
@@ -24,7 +30,11 @@ from torch import nn
 
 from ..config import Config
 from ..ops.nms import nms_hm, select_topk, sigmoid_hm
-from .layers import BatchNorm1d, Conv1d, Conv2d, conv_bn_act
+from .layers import DCN, BatchNorm1d, Conv1d, Conv2d, batch_norm, conv_bn_act
+
+# the clamp of the deeper head's DCN: the JAX module's default window_radius
+# (dcd_tpu/models/layers.py:93), which its predictor does not override
+HEAD_DCN_RADIUS = 3
 
 
 class Converter_key2channel:
@@ -58,15 +68,29 @@ def edge_fusion(head_conv: int, out_channels: int, kernel_size: int, use_bn: boo
     )
 
 
+def head_pre(in_channels: int, head_conv: int, act: str, dcn_impl: str) -> nn.Sequential:
+    """The deeper head's stem: children ``0`` conv, ``1`` BN, ``2`` act,
+    ``3`` DCN, ``4`` BN, ``5`` act (JAX: ``{name}_conv``, ``{name}_dcn``,
+    ``{name}_bn``)."""
+    stem = conv_bn_act(in_channels, head_conv, 3, act=_act(act))
+    stem.extend([DCN(head_conv, head_conv, dcn_impl, HEAD_DCN_RADIUS), batch_norm(head_conv),
+                 _act(act)])
+    return stem
+
+
 class Predictor(nn.Module):
     def __init__(self, cfg: Config, in_channels: int):
         super().__init__()
         head = cfg.model.head
-        if head.deeper_head:
-            raise NotImplementedError("the deeper head variant is not ported")
         self.cfg = cfg
         classes = cfg.datasets.max_classes_num
         hc = head.num_channel
+        self.deeper_head = head.deeper_head
+        if head.deeper_head:
+            impl = cfg.model.backbone.dcn_impl
+            self.cls_head_pre = head_pre(in_channels, hc, head.active_func, impl)
+            self.reg_head_pre = head_pre(in_channels, hc, head.active_func, impl)
+            in_channels = hc
         self.class_head = conv_bn_act(in_channels, hc, 3, act=_act(head.active_func))
         self.class_head.append(Conv2d(hc, classes, 1, bias=True))
         nn.init.constant_(self.class_head[3].bias, -float(np.log(1.0 / head.init_p - 1.0)))
@@ -108,8 +132,12 @@ class Predictor(nn.Module):
     def forward(self, features: torch.Tensor, edge_indices: Optional[torch.Tensor] = None,
                 edge_len: Optional[torch.Tensor] = None,
                 lazy_topk: bool = False) -> Dict[str, torch.Tensor]:
+        if self.deeper_head:
+            features_cls, features = self.cls_head_pre(features), self.reg_head_pre(features)
+        else:
+            features_cls = features
         B, C, H, W = features.shape
-        feature_cls = self.class_head[:3](features)
+        feature_cls = self.class_head[:3](features_cls)
         output_cls = self.class_head[3](feature_cls)
         do_fusion = self.enable_edge_fusion and edge_indices is not None
         og, ok = self.offset_group, self.offset_key

@@ -6,7 +6,7 @@ and configuration, ``--device`` (``cuda`` unless asked for ``cpu``; with no
 card it raises) and ``--seed`` (the initial weights' seed; 0, the default,
 as the JAX run's key), so that runs from several draws show how far one
 run's numbers are noise. ``dgde_run_config()`` at full size (384x1280, the
-shipped head widths) with bf16 activations (``fp16``), pretrain off,
+shipped head widths) with bf16 activations (``fp16``; ``--fp32`` for fp32), pretrain off,
 ``remat`` from the flag, warmup of 100 steps to a base LR of 3e-4 and
 ``--accum`` microbatches per step; a pool of ``--pool`` synthetic scenes
 (``make_scene(seed=s, num_objs=8)``) cycled in batches of ``--batch``, and
@@ -52,13 +52,14 @@ OUT_DIR = os.path.join("build", "convergence_run")
 VAL_SEED0 = 10_000
 
 
-def run_config(accum: int = 1, remat: bool = False, base: Optional[Config] = None) -> Config:
+def run_config(accum: int = 1, remat: bool = False, base: Optional[Config] = None,
+               fp16: bool = True) -> Config:
     """The JAX tool's configuration (its :65-73) over ``base`` (by default
-    ``dgde_run_config()``)."""
+    ``dgde_run_config()``); ``fp16=False`` trains in fp32."""
     cfg = dgde_run_config() if base is None else base
     return dataclasses.replace(
         cfg,
-        model=dataclasses.replace(cfg.model, fp16=True, pretrain=False, remat=remat),
+        model=dataclasses.replace(cfg.model, fp16=fp16, pretrain=False, remat=remat),
         solver=dataclasses.replace(cfg.solver, lr_warmup=True, warmup_steps=100, base_lr=3e-4,
                                    grad_accum_steps=accum),
     )
@@ -155,8 +156,9 @@ def summary(args, hist, ap_hist, wall, device_name) -> List[str]:
         "# Convergence: full-size synthetic training run of the PyTorch port",
         "",
         f"`python -m dcd_tpu_torch.tools.convergence_run --steps {args.steps} --batch {args.batch} "
-        f"--accum {args.accum} --pool {args.pool}{' --remat' if args.remat else ''}` on "
-        f"{device_name}: full 384x1280 input, shipped head widths, bf16 activations, pretrain "
+        f"--accum {args.accum} --pool {args.pool}{' --remat' if args.remat else ''}"
+        f"{' --fp32' if args.fp32 else ''} --seed {args.seed}` on {device_name}: full 384x1280 "
+        f"input, shipped head widths, {'fp32' if args.fp32 else 'bf16'} activations, pretrain "
         f"off. Raw curves: {args.out_jsonl}.",
         "",
         f"- wall: {wall:.0f}s for {args.steps} steps "
@@ -213,6 +215,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--out_jsonl", default=os.path.join(OUT_DIR, "metrics.jsonl"))
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     ap.add_argument("--seed", type=int, default=0, help="the initial weights' seed")
+    ap.add_argument("--fp32", action="store_true",
+                    help="fp32 activations (the JAX tool trains in bf16)")
     return ap.parse_args(argv)
 
 
@@ -220,7 +224,7 @@ def run(args: argparse.Namespace, cfg: Optional[Config] = None, **scene_kw) -> d
     """The run of ``args`` on ``cfg`` (by default :func:`run_config` of the
     flags); ``scene_kw`` goes to ``make_scene`` (the tests shrink the
     scenes). Returns the logged rows, the AP rows and the wall seconds."""
-    cfg = run_config(args.accum, args.remat) if cfg is None else cfg
+    cfg = run_config(args.accum, args.remat, fp16=not args.fp32) if cfg is None else cfg
     print(f"# encoding {args.pool} scenes...", file=sys.stderr)
     batches = make_batches(cfg, args.pool, args.batch, **scene_kw)
     trainer = build_trainer(cfg, args.device, seed=args.seed, iters_per_epoch=len(batches))

@@ -74,6 +74,12 @@ def _torch_segments(mods, key_index) -> list:
             out.append(f"conv{n}" if nxt == "conv" else f"bn{n}")
             i += 2
             continue
+        elif re.fullmatch(r"(cls|reg)_head_pre_conv", m) and nxt in pair:
+            out += [m[: -len("_conv")], str(pair[nxt])]
+            i += 2
+            continue
+        elif re.fullmatch(r"(cls|reg)_head_pre_(dcn|bn)", m):
+            out += [m[: m.rindex("_")], "3" if m.endswith("_dcn") else "4"]
         elif m == "class_feat" and nxt in pair:
             out += ["class_head", str(pair[nxt])]
             i += 2
@@ -100,7 +106,11 @@ def _torch_segments(mods, key_index) -> list:
 def from_jax_variables(variables: Mapping, cfg: Config) -> Dict[str, np.ndarray]:
     """Flax ``{"params", "batch_stats"}`` of the JAX detector -> the port's
     state dict (numpy arrays, reference torch names). ``cfg`` names the
-    regression keys of each head group."""
+    regression keys of each head group.
+
+    The deeper head's stems (``heads/{cls,reg}_head_pre_{conv,dcn,bn}``) map
+    to ``heads.{cls,reg}_head_pre.{0,1,3,4}``. ``import_torch_dgde`` does not
+    know these names, so a deeper head carries from JAX to the port only."""
     head = cfg.model.head
     key_index = {
         (gi, key): ki

@@ -38,6 +38,17 @@ gradients that move by over 5e-3 of their scale, and each part's gradients
 as one vector by relative Frobenius norm.
 
     JAX_PLATFORMS=cpu python tests/conditioning_probe.py --train --draws 3
+
+``--steps`` measures the limits of
+``tests/test_torch_train.py::test_convergence_solver_steps_match_jax``: four
+steps of the convergence tools' solver from the JAX package's initial weights
+(``model.init``) of that test's configuration, the port's
+own run under one intra-op thread against torch's default and under every
+weight times (1 + 1e-7 randn), then the port against JAX; per run the
+largest relative change of each step's loss terms, of the BN running
+statistics after the last step and of the eval-mode rows then.
+
+    JAX_PLATFORMS=cpu python tests/conditioning_probe.py --steps --draws 3
 """
 
 import argparse
@@ -243,15 +254,81 @@ def train_probe(draws):
         torch.set_num_threads(threads)
 
 
+def _steps_changes(a, b):
+    """Largest relative change between two runs of the convergence solver's
+    steps (logs of each step, BN statistics and rows after the last), as
+    ``test_convergence_solver_steps_match_jax`` measures port against JAX.
+    ``b`` may be JAX's (its statistics as a flax tree)."""
+    (la, sa, ra), (lb, sb, rb) = a, b
+    out = {}
+    for i, (x, y) in enumerate(zip(la, lb)):
+        for k, v in y.items():
+            rel = abs(x[k] - v) / max(abs(v), 1e-30)
+            key = ("pair terms" if k in PAIR_TERMS_ else k if k in ("grad_norm", "lr")
+                   else "loss terms" if k.endswith("_loss") else "metrics")
+            if rel > out.get(key, (0.0,))[0]:
+                out[key] = (rel, f"step {i} {k}")
+    worst = (0.0, "")
+    for n, want in sb.items():
+        rel = float(np.abs(sa[n] - want).max() / max(np.abs(want).max(), 1e-30))
+        worst = max(worst, (rel, n))
+    out["bn stats"] = worst
+    out["rows"] = float(np.abs(ra["dets"] - rb["dets"]).max() / np.abs(rb["dets"]).max())
+    v = rb["valid"]
+    out["valid rows"] = (float(np.abs(ra["dets"][v] - rb["dets"][v]).max() / np.abs(rb["dets"][v]).max())
+                         if v.any() else None, int(v.sum()))
+    out["valid equal"] = bool(np.array_equal(ra["valid"], rb["valid"]))
+    return out
+
+
+PAIR_TERMS_ = set()
+
+
+def steps_probe(draws):
+    """The limits of test_torch_train.py::test_convergence_solver_steps_match_jax:
+    the port's own run at torch's default thread count against one intra-op
+    thread and against every weight times (1 + 1e-7 randn), then the port
+    (one thread, as the test runs) against JAX."""
+    import torch
+
+    import test_torch_train as T
+    from dcd_tpu_torch.utils.weights import from_jax_variables
+
+    PAIR_TERMS_.update(T.PAIR_TERMS)
+    reference = T.jax_reference()
+    variables = T.flax_init_variables()
+    _, tcfg = T._convergence_configs()
+    threads = torch.get_num_threads()
+    base = T.port_convergence_steps(reference, variables)
+    torch.set_num_threads(1)
+    one = T.port_convergence_steps(reference, variables)
+    print(f"threads {threads} vs 1: {_steps_changes(base, one)}", flush=True)
+    for d in range(draws):
+        for n_threads, ref in ((1, one), (threads, base)):
+            torch.set_num_threads(n_threads)
+            got = T.port_convergence_steps(reference, variables, np.random.RandomState(200 + d))
+            print(f"draw {d}, {n_threads} thread(s), weights x (1 + 1e-7 randn): "
+                  f"{_steps_changes(got, ref)}", flush=True)
+    torch.set_num_threads(1)
+    jlogs, jstats, jrows = T.jax_convergence_steps(reference, variables)
+    jstats = from_jax_variables({"params": {}, "batch_stats": jstats}, tcfg)
+    print(f"port (1 thread) vs JAX: {_steps_changes(one, (jlogs, jstats, jrows))}", flush=True)
+    torch.set_num_threads(threads)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--draws", type=int, default=3)
     ap.add_argument("--train", action="store_true", help="measure the train step instead")
+    ap.add_argument("--steps", action="store_true",
+                    help="measure the convergence solver's steps instead")
     ap.add_argument("--out", default=None, help="save the unperturbed run's depths (npz)")
     ap.add_argument("--compare", default=None, help="an --out file to compare with")
     args = ap.parse_args()
     if args.train:
         return train_probe(args.draws)
+    if args.steps:
+        return steps_probe(args.draws)
     ctx = _setup()
     images = ctx["batch"]["images"].astype(np.float32)
     base = chain(ctx, images, ctx["variables"], ctx["gstate"].params)

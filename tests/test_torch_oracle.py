@@ -143,3 +143,15 @@ def test_collect_offsets_records_every_dcn_before_the_clip():
     for n, v in got.items():
         np.testing.assert_array_equal(v, raw[n])
     assert max(np.abs(v).max() for v in got.values()) > cfg.model.backbone.dcn_radius
+
+
+def test_convergence_run_takes_fp32_and_seed():
+    """``--fp32`` trains the tool's configuration in fp32 (bf16 otherwise,
+    as the JAX tool), ``--seed`` draws other initial weights."""
+    args = convergence_run.parse_args(["--fp32", "--seed", "3"])
+    assert args.fp32 and args.seed == 3
+    assert not convergence_run.run_config(fp16=not args.fp32).model.fp16
+    default = convergence_run.parse_args([])
+    cfg = convergence_run.run_config(default.accum, default.remat, fp16=not default.fp32)
+    assert cfg.model.fp16 and not cfg.model.pretrain and default.seed == 0
+    assert (cfg.solver.warmup_steps, cfg.solver.base_lr) == (100, 3e-4)

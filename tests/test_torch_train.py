@@ -43,9 +43,11 @@ from dcd_tpu.config import dgde_run_config as jax_run_config
 from dcd_tpu.data import synthetic
 from dcd_tpu.data.target_encoder import collate, encode_targets
 from dcd_tpu.engine import solver as jax_solver
+from dcd_tpu.engine.infer import postprocess as jax_postprocess
 from dcd_tpu.engine.train import make_grad_fn
 from dcd_tpu_torch.config import dgde_run_config as torch_run_config
 from dcd_tpu_torch.engine import solver as port_solver
+from dcd_tpu_torch.engine.infer import infer
 from dcd_tpu_torch.engine.train import (build_trainer, compute_gradients,
                                          deterministic_algorithms, train_step)
 from dcd_tpu_torch.models.layers import DCN
@@ -146,6 +148,10 @@ def _close(got, want, name, rel=REL):
 
 @pytest.fixture(scope="module")
 def reference():
+    return jax_reference()
+
+
+def jax_reference():
     """The JAX package's gradients of microbatch 0 (one image) with the
     initial BN statistics and of microbatch 1 with the statistics after
     microbatch 0, from one compiled ``make_grad_fn``."""
@@ -164,7 +170,7 @@ def reference():
         steps.append(dict(total=float(total), logs=jax.tree.map(np.asarray, logs),
                           grads=jax.tree.map(np.asarray, grads),
                           stats=jax.tree.map(np.asarray, stats)))
-    return dict(variables=variables, batch=batch, steps=steps)
+    return dict(variables=variables, batch=batch, steps=steps, jmodel=jmodel, grad_fn=grad_fn)
 
 
 def _port(reference, accum=1, batch=None):
@@ -287,6 +293,141 @@ def test_port_step_is_deterministic_and_updates(reference):
              for n, p in trainer.model.named_parameters()]
     assert all(np.isfinite(moved)) and sum(m > 0 for m in moved) > 0.9 * len(moved)
     assert not any(dcn_cuda.deform_conv2d.launches_by_kernel.values())  # CPU tensors never launch
+
+
+# A few steps of the convergence tools' solver (tools/convergence_run.py:65-73:
+# warm-up of 100 steps to a base LR of 3e-4, two microbatches per step) from
+# the JAX package's own initial weights (model.init, where the convergence
+# run starts) on the test's batch: JAX's side is the fixture's compiled
+# gradient composed as make_train_step composes it, with build_optimizer's
+# update. Measured with tests/conditioning_probe.py --steps (one intra-op
+# thread against eight, and every weight times (1 + 1e-7 randn) in four
+# draws at each thread count), the port's own run moves each step's loss
+# terms by up to 4.5e-3 relative, the other logged metrics by 8.0e-3, the
+# pair-depth terms by 3.1e-3, the BN running statistics after the last step
+# by 5.7e-4 of their largest magnitude and the eval-mode rows then by 7.3e-5
+# of theirs. In two of the eight perturbed runs (one thread) a switch flips
+# and moves them by up to 5.9e-2, 0.14, 0.17, 1.4e-2 and 2.8e-4: Adam's
+# first steps move every weight by about the LR whatever its gradient's
+# size, and the warm-up LR grows. The port against JAX reads 3.1e-3, 1.7e-3,
+# 1.8e-2 (edges_MAE: the top-k of pairs), 6.6e-4 and 4.1e-5, on the
+# unflipped side. Limits: about twice the unflipped reach, and for the pair
+# terms the switched reach's third.
+CONVERGENCE_STEPS = 4
+STEPS_LOSS_REL, STEPS_METRIC_REL, STEPS_PAIR_REL = 1e-2, 1.6e-2, 5e-2
+STEPS_STATS_REL, STEPS_ROWS_REL = 1.5e-3, 1.5e-4
+
+
+def _convergence_configs():
+    def solver(cfg):
+        return dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, lr_warmup=True, warmup_steps=100, base_lr=3e-4))
+
+    return tuple(map(solver, _configs(accum=2)))
+
+
+def _row_inputs(batch):
+    return [batch[k] for k in ("images", "edge_indices", "edge_len", "calib_P_full", "pad_size",
+                               "image_size")]
+
+
+def flax_init_variables(seed=0):
+    """The JAX package's own initial weights of the test's configuration
+    (``model.init``, as the convergence tool starts from them); the
+    parameters' shapes do not depend on the DCN form, and the offset-free
+    one initialises in a fraction of the time."""
+    from torch_port_common import edge_inputs, with_dcn
+
+    from dcd_tpu.models.detector import KeypointDetector as JaxDetector
+
+    jcfg, _ = _configs()
+    model = JaxDetector(with_dcn(jcfg, "plain"))
+    ei, el = edge_inputs(jcfg, 1, np.random.RandomState(0))
+    img = jnp.zeros((1, jcfg.input.height_train, jcfg.input.width_train, 3), jnp.float32)
+    return jax.jit(lambda r: model.init(r, img, ei, el, train=False))(jax.random.PRNGKey(seed))
+
+
+def jax_convergence_steps(reference, variables):
+    """JAX's logs of each step from ``variables``, its BN running statistics
+    after the last and its eval-mode rows (lazy top-K path, as inference
+    runs) then."""
+    jcfg, _ = _convergence_configs()
+    params, stats = variables["params"], variables["batch_stats"]
+    tx = jax_solver.build_optimizer(jcfg, params, 1000)
+    opt_state = tx.init(params)
+
+    @jax.jit
+    def update(grads, opt_state, params):
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
+
+    batch, logs = reference["batch"], []
+    for _ in range(CONVERGENCE_STEPS):
+        micro = []
+        for i in range(2):
+            (total, (stats, lg)), g = reference["grad_fn"](
+                params, stats, {k: v[i:i + 1] for k, v in batch.items()})
+            micro.append((total, lg, g))
+        grads = jax.tree.map(lambda a, b: a / 2 + b / 2, micro[0][2], micro[1][2])
+        step_logs = {k: (float(micro[0][1][k]) + float(micro[1][1][k])) / 2 for k in micro[0][1]}
+        step_logs["total_loss"] = (float(micro[0][0]) + float(micro[1][0])) / 2
+        logs.append(step_logs)
+        params, opt_state = update(grads, opt_state, params)
+    jmodel = reference["jmodel"]
+    rows = jax.jit(lambda v, im, ei, el, *post: jax_postprocess(
+        jcfg, jmodel.apply(v, im, ei, el, train=False, lazy_topk=True), *post))(
+        {"params": params, "batch_stats": stats}, *_row_inputs(batch))
+    return logs, jax.tree.map(np.asarray, stats), jax.tree.map(np.asarray, rows)
+
+
+def port_convergence_steps(reference, variables, perturb=None):
+    """The port's logs of each ``train_step`` from ``variables``, its BN
+    running statistics after the last and its eval-mode rows then;
+    ``perturb`` (a RandomState) multiplies every weight by (1 + 1e-7 randn)
+    first."""
+    _, tcfg = _convergence_configs()
+    trainer = build_trainer(tcfg, device="cpu")
+    load_state(trainer.model, from_jax_variables(variables, tcfg))
+    if perturb is not None:
+        with torch.no_grad():
+            for p in trainer.model.parameters():
+                p.mul_(1 + 1e-7 * torch.from_numpy(perturb.randn(*p.shape)).float())
+    logs = [{k: float(v) for k, v in train_step(trainer, reference["batch"]).items()}
+            for _ in range(CONVERGENCE_STEPS)]
+    stats = {n: b.numpy().copy() for n, b in trainer.model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    trainer.model.eval()
+    im, ei, el, *post = (torch.from_numpy(np.asarray(a)) for a in _row_inputs(reference["batch"]))
+    rows = infer(trainer.model, im, ei.long(), el.long(), *post, cfg=tcfg)
+    return logs, stats, {k: v.numpy() for k, v in rows.items()}
+
+
+@pytest.fixture(scope="module")
+def convergence_steps(reference):
+    variables = flax_init_variables()
+    return (jax_convergence_steps(reference, variables),
+            port_convergence_steps(reference, variables))
+
+
+def test_convergence_solver_steps_match_jax(convergence_steps):
+    """Four steps of the convergence solver from JAX's initial weights: each
+    step's loss terms and metrics, the BN running statistics after the last,
+    and the eval-mode rows then (the same valid rows; every row's values)."""
+    (jlogs, jstats, jrows), (logs, stats, rows) = convergence_steps
+    _, tcfg = _convergence_configs()
+    assert len(logs) == len(jlogs) == CONVERGENCE_STEPS
+    assert logs[-1]["lr"] > logs[0]["lr"] > 0  # the warm-up
+    for i, (got, want) in enumerate(zip(logs, jlogs)):
+        for k, v in want.items():
+            rel = (STEPS_PAIR_REL if k in PAIR_TERMS else
+                   STEPS_LOSS_REL if k.endswith("_loss") else STEPS_METRIC_REL)
+            _close(got[k], v, f"step {i} {k}", rel)
+    want_stats = from_jax_variables({"params": {}, "batch_stats": jstats}, tcfg)
+    assert len(want_stats) > 20 and set(want_stats) <= set(stats)
+    for name, v in want_stats.items():
+        _close(stats[name], v, name, STEPS_STATS_REL)
+    np.testing.assert_array_equal(rows["valid"], jrows["valid"])
+    _close(rows["dets"], jrows["dets"], "rows", STEPS_ROWS_REL)
 
 
 def test_build_trainer_refuses_cpu_fallback(monkeypatch):

@@ -118,7 +118,9 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax_and_nothing_of_dcd_tpu():
-    files = sorted((ROOT / "dcd_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # and the scripts that run on the card
+    files = sorted((ROOT / "dcd_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "deeper_head_step_probe.py"]
     assert len(files) > 10
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {f"dcd_tpu_torch/{m}.py" for m in (
@@ -127,7 +129,9 @@ def test_port_imports_no_jax_and_nothing_of_dcd_tpu():
         "utils/metrics", "utils/writer", "utils/timer", "tools/train_gmw", "tools/demo",
         "utils/visualize", "utils/profiling", "tools/oracle_inject", "tools/convergence_run",
         "tools/offset_stats", "tools/bf16_rows", "parallel/mesh", "parallel/workers",
-        "tools/multiprocess_smoke")} <= names
+        "tools/multiprocess_smoke", "tools/two_stage_artifact", "ops/psroi", "utils/assignment",
+        "utils/misc", "data/native", "models/predictor")} <= names
+    assert (ROOT / "dcd_tpu_torch" / "csrc" / "heatmap_native.cc").is_file()
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in BANNED, f"{path.relative_to(ROOT)} imports {mod}"
