@@ -29,6 +29,7 @@ from typing import Callable, Iterable, List, Tuple
 import torch
 
 from ..config import Config
+from ..utils.profiling import span
 
 Schedule = Callable[[int], float]
 
@@ -125,20 +126,22 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        grads = []
-        for p in self.params:
-            if p.grad is None:  # optax updates (decays) every leaf
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        if self.clip > 0:
-            # optax.clip_by_global_norm: g * clip / norm where norm >= clip
-            norm = global_norm(grads)
-            factor = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
-            torch._foreach_mul_(grads, factor)
-        lr = self.lr()
-        for group in self.adamw.param_groups:
-            group["lr"] = lr * group["lr_factor"]
-            if self.mom_schedule is not None:
-                group["betas"] = (self.mom_schedule(self.count), 0.99)
-        self.adamw.step()
-        self.count += 1
+        with span("dcd.optimizer"):
+            grads = []
+            for p in self.params:
+                if p.grad is None:  # optax updates (decays) every leaf
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+            if self.clip > 0:
+                # optax.clip_by_global_norm: g * clip / norm where norm >= clip
+                with span("dcd.optimizer.clip"):
+                    norm = global_norm(grads)
+                    factor = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
+                    torch._foreach_mul_(grads, factor)
+            lr = self.lr()
+            for group in self.adamw.param_groups:
+                group["lr"] = lr * group["lr_factor"]
+                if self.mom_schedule is not None:
+                    group["betas"] = (self.mom_schedule(self.count), 0.99)
+            self.adamw.step()
+            self.count += 1

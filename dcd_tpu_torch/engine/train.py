@@ -60,6 +60,7 @@ from ..models.dla import Tree
 from ..models.layers import frozen_running_stats, use_process_group
 from ..parallel.mesh import all_reduce_sum, replicate
 from ..utils.checkpoint import load_torch_dla34
+from ..utils.profiling import span
 from .infer import build_detector, resolve_device
 from .loss import compute_losses
 from .solver import Optimizer, global_norm
@@ -188,11 +189,12 @@ def batch_to_device(batch: Mapping[str, Union[np.ndarray, torch.Tensor]],
                     device: torch.device) -> Dict[str, torch.Tensor]:
     """A collated batch (numpy or torch) as tensors on ``device``, int64
     edge indices for the gathers."""
-    out = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v).to(device)
-           for k, v in batch.items()}
-    out["edge_indices"] = out["edge_indices"].long()
-    out["edge_len"] = out["edge_len"].long()
-    return out
+    with span("dcd.train.h2d"):
+        out = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v).to(device)
+               for k, v in batch.items()}
+        out["edge_indices"] = out["edge_indices"].long()
+        out["edge_len"] = out["edge_len"].long()
+        return out
 
 
 def compute_gradients(trainer: Trainer, batch: Mapping) -> Dict[str, torch.Tensor]:
@@ -219,9 +221,12 @@ def compute_gradients(trainer: Trainer, batch: Mapping) -> Dict[str, torch.Tenso
             mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
             sync = trainer.ddp is None or i == accum - 1
             with contextlib.nullcontext() if sync else trainer.ddp.no_sync():
-                preds = forward(mb["images"], mb["edge_indices"], mb["edge_len"])
-                total, _, logs = compute_losses(cfg, preds, mb, group)
-                (total * share / accum).backward()
+                with span("dcd.train.forward"):
+                    preds = forward(mb["images"], mb["edge_indices"], mb["edge_len"])
+                with span("dcd.train.loss"):
+                    total, _, logs = compute_losses(cfg, preds, mb, group)
+                with span("dcd.train.backward"):
+                    (total * share / accum).backward()
             for k, v in {**logs, "total_loss": total}.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
         if group is not None:  # the ranks' shares summed: the global logs
@@ -229,7 +234,9 @@ def compute_gradients(trainer: Trainer, batch: Mapping) -> Dict[str, torch.Tenso
             summed = all_reduce_sum(torch.stack([sums[k] for k in keys]), group)
             sums = dict(zip(keys, summed.unbind()))
         logs = {k: v / accum for k, v in sums.items()}
-        logs["grad_norm"] = global_norm(p.grad for p in model.parameters() if p.grad is not None)
+        with span("dcd.train.grad_norm"):
+            logs["grad_norm"] = global_norm(p.grad for p in model.parameters()
+                                            if p.grad is not None)
     return logs
 
 
@@ -237,7 +244,7 @@ def train_step(trainer: Trainer, batch: Mapping) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``batch`` (a collated batch of
     :mod:`dcd_tpu_torch.data.target_encoder`): every loss and log term,
     ``total_loss``, the step's ``lr`` and the ``grad_norm`` before the clip."""
-    with _step_mode(trainer):
+    with span("dcd.train_step"), _step_mode(trainer):
         logs = compute_gradients(trainer, batch)
         logs["lr"] = torch.tensor(trainer.optimizer.lr())
         trainer.optimizer.step()

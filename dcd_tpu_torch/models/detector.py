@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..utils.profiling import span
 from .dla import DLASeg
 from .predictor import Predictor
 
@@ -39,5 +40,6 @@ class KeypointDetector(nn.Module):
         """images: (B, H, W, 3) NHWC, cast to the model's activation type.
         The NCHW view of NHWC memory keeps every activation channels-last,
         the layout the DCN kernel reads."""
-        features = self.backbone(images.to(self.dtype).permute(0, 3, 1, 2))
-        return self.heads(features, edge_indices, edge_len, lazy_topk=lazy_topk)
+        with span("dcd.model"):
+            features = self.backbone(images.to(self.dtype).permute(0, 3, 1, 2))
+            return self.heads(features, edge_indices, edge_len, lazy_topk=lazy_topk)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.profiling import span
 from .layers import Conv2d, DeformConv, batch_norm, bilinear_up, conv_bn_act
 
 
@@ -134,7 +135,9 @@ class IDAUp(nn.Module):
         layers = list(layers)
         for i in range(startp + 1, endp):
             k = i - startp
-            up = getattr(self, f"up_{k}")(getattr(self, f"proj_{k}")(layers[i]))
+            proj = getattr(self, f"proj_{k}")(layers[i])
+            with span("dcd.upsample"):
+                up = getattr(self, f"up_{k}")(proj)
             layers[i] = getattr(self, f"node_{k}")(up + layers[i - 1])
         return layers
 
@@ -184,7 +187,9 @@ class DLASeg(nn.Module):
         self.out_channels = channels[fl]
 
     def forward(self, x) -> torch.Tensor:
-        feats = self.base(x)
-        outs = self.dla_up(feats[self.first_level:])
-        y = outs[: self.last_level - self.first_level]
-        return self.ida_up(y, 0, len(y))[-1]
+        with span("dcd.trunk"):
+            feats = self.base(x)
+        with span("dcd.decoder"):
+            outs = self.dla_up(feats[self.first_level:])
+            y = outs[: self.last_level - self.first_level]
+            return self.ida_up(y, 0, len(y))[-1]

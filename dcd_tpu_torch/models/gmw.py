@@ -31,11 +31,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from ..ops.codec import triu_pair_indices
 from ..ops.nms import topk_like_jax
 from ..ops.sinkhorn import RegularisedTransport
+from ..utils.profiling import span
 
 # flax's truncated normal at +-2 std has std 0.8796...: lecun_normal divides it out
 _TRUNCATED_STD = 0.87962566103423978
@@ -157,12 +157,12 @@ class GMW(nn.Module):
         """(reg_weights (B, E), the cost matrix M (B, E, E)): the forward
         without the transport, all that depth refinement needs. The two
         parts run in profiler spans ``gmw.towers`` and ``gmw.cost_matrix``."""
-        with record_function("gmw.towers"):
+        with span("gmw.towers"):
             f4 = self.FeatureExtractor4d(edge_expand(kpts_2d))
             f6 = self.FeatureExtractor6d(edge_expand(kpts_3d))
             f4 = f4 / torch.clamp(torch.linalg.norm(f4, dim=-1, keepdim=True), min=1e-12)
             f6 = f6 / torch.clamp(torch.linalg.norm(f6, dim=-1, keepdim=True), min=1e-12)
-        with record_function("gmw.cost_matrix"):
+        with span("gmw.cost_matrix"):
             M = pairwise_l2_dist(f4.float(), f6.float())
             return 1.0 / torch.diagonal(M, dim1=-2, dim2=-1), M
 

@@ -34,6 +34,7 @@ from torch import nn
 from ..ops.dcn import deform_conv2d_clamped, deform_conv2d_gather
 from ..ops.dcn_cuda import DeformConv2dFunction
 from ..parallel.mesh import all_reduce_sum
+from ..utils.profiling import span
 
 BN_EPS = 1e-5
 DCN_IMPLS = ("auto", "pallas", "dense", "gather", "plain")
@@ -214,21 +215,22 @@ class DCN(nn.Module):
         nn.init.zeros_(self.conv_offset_mask.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = self.bias.to(x.dtype)
-        if self.impl == "plain":  # the JAX package's diagnostic lower bound
-            return F.conv2d(x, self.weight.to(x.dtype), bias, padding=1)
-        om = self.conv_offset_mask(x).permute(0, 2, 3, 1)  # NHWC view
-        offset = om[..., :18].float().contiguous()
-        mask = torch.sigmoid(om[..., 18:]).contiguous()
-        x_nhwc = x.permute(0, 2, 3, 1).contiguous()
-        weight = self.weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()  # (3, 3, Cin, Cout)
-        if self.impl in ("auto", "pallas"):
-            out = DeformConv2dFunction.apply(x_nhwc, offset, mask, weight, bias, self.radius)
-        elif self.impl == "dense":
-            out = deform_conv2d_clamped(x_nhwc, offset, mask, weight, bias, self.radius)
-        else:
-            out = deform_conv2d_gather(x_nhwc, offset, mask, weight, bias)
-        return out.permute(0, 3, 1, 2)
+        with span("dcd.dcn"):
+            bias = self.bias.to(x.dtype)
+            if self.impl == "plain":  # the JAX package's diagnostic lower bound
+                return F.conv2d(x, self.weight.to(x.dtype), bias, padding=1)
+            om = self.conv_offset_mask(x).permute(0, 2, 3, 1)  # NHWC view
+            offset = om[..., :18].float().contiguous()
+            mask = torch.sigmoid(om[..., 18:]).contiguous()
+            x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+            weight = self.weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()  # (3, 3, Cin, Cout)
+            if self.impl in ("auto", "pallas"):
+                out = DeformConv2dFunction.apply(x_nhwc, offset, mask, weight, bias, self.radius)
+            elif self.impl == "dense":
+                out = deform_conv2d_clamped(x_nhwc, offset, mask, weight, bias, self.radius)
+            else:
+                out = deform_conv2d_gather(x_nhwc, offset, mask, weight, bias)
+            return out.permute(0, 3, 1, 2)
 
 
 class DeformConv(nn.Module):

@@ -30,6 +30,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops.nms import nms_hm, select_topk, sigmoid_hm
+from ..utils.profiling import span
 from .layers import DCN, BatchNorm1d, Conv1d, Conv2d, batch_norm, conv_bn_act
 
 # the clamp of the deeper head's DCN: the JAX module's default window_radius
@@ -132,67 +133,69 @@ class Predictor(nn.Module):
     def forward(self, features: torch.Tensor, edge_indices: Optional[torch.Tensor] = None,
                 edge_len: Optional[torch.Tensor] = None,
                 lazy_topk: bool = False) -> Dict[str, torch.Tensor]:
-        if self.deeper_head:
-            features_cls, features = self.cls_head_pre(features), self.reg_head_pre(features)
-        else:
-            features_cls = features
-        B, C, H, W = features.shape
-        feature_cls = self.class_head[:3](features_cls)
-        output_cls = self.class_head[3](feature_cls)
-        do_fusion = self.enable_edge_fusion and edge_indices is not None
-        og, ok = self.offset_group, self.offset_key
-        offset_feat = self.reg_features[og](features)
-        offset_out = self.reg_heads[og][ok](offset_feat)
-        if do_fusion:
-            output_cls, offset_out = self._edge_fuse(
-                feature_cls, output_cls, offset_feat, offset_out, edge_indices, edge_len)
-        hm = sigmoid_hm(output_cls.permute(0, 2, 3, 1)).float()  # NHWC
+        with span("dcd.heads"):
+            if self.deeper_head:
+                features_cls, features = self.cls_head_pre(features), self.reg_head_pre(features)
+            else:
+                features_cls = features
+            B, C, H, W = features.shape
+            feature_cls = self.class_head[:3](features_cls)
+            output_cls = self.class_head[3](feature_cls)
+            do_fusion = self.enable_edge_fusion and edge_indices is not None
+            og, ok = self.offset_group, self.offset_key
+            offset_feat = self.reg_features[og](features)
+            offset_out = self.reg_heads[og][ok](offset_feat)
+            if do_fusion:
+                output_cls, offset_out = self._edge_fuse(
+                    feature_cls, output_cls, offset_feat, offset_out, edge_indices, edge_len)
+            hm = sigmoid_hm(output_cls.permute(0, 2, 3, 1)).float()  # NHWC
 
-        if not lazy_topk:
-            outs = []
+            if not lazy_topk:
+                outs = []
+                for gi, heads in enumerate(self.reg_heads):
+                    feat = offset_feat if gi == og else self.reg_features[gi](features)
+                    for ki, conv in enumerate(heads):
+                        outs.append(offset_out if (gi, ki) == (og, ok) else conv(feat))
+                reg = torch.cat(outs, dim=1).permute(0, 2, 3, 1)  # NHWC
+                return {"cls": hm, "reg": reg}
+
+            # Lazy top-K inference path: only the class branch and the 3d_offset
+            # group (the edge-fusion target) run densely; every other group runs
+            # on the 3x3 neighbourhoods of the top-K peaks, where the centre of a
+            # padded 3x3 conv equals the dense conv at the peak.
+            if self.training:
+                raise RuntimeError("lazy_topk is an inference-only path")
+            K = self.cfg.test.detections_per_img
+            scores, indexs, clses, ys, xs = select_topk(nms_hm(hm), K=K)
+            xi, yi = xs.long(), ys.long()
+            fpad = nn.functional.pad(features, (1, 1, 1, 1))  # (B, C, H+2, W+2)
+            Wp = W + 2
+            r3 = torch.arange(3, device=features.device)
+            nb_idx = (((yi[:, :, None] + r3) * Wp)[:, :, :, None]
+                      + (xi[:, :, None] + r3)[:, :, None, :])
+            nb = torch.gather(
+                fpad.reshape(B, C, (H + 2) * Wp), 2,
+                nb_idx.reshape(B, 1, K * 9).expand(B, C, K * 9),
+            )  # (B, C, K*9)
+            nb = nb.view(B, C, K, 3, 3).permute(0, 2, 1, 3, 4).reshape(B * K, C, 3, 3)
+
+            pois = []
             for gi, heads in enumerate(self.reg_heads):
-                feat = offset_feat if gi == og else self.reg_features[gi](features)
+                feat = None if gi == og else self.reg_features[gi](nb)[:, :, 1:2, 1:2]
                 for ki, conv in enumerate(heads):
-                    outs.append(offset_out if (gi, ki) == (og, ok) else conv(feat))
-            reg = torch.cat(outs, dim=1).permute(0, 2, 3, 1)  # NHWC
-            return {"cls": hm, "reg": reg}
-
-        # Lazy top-K inference path: only the class branch and the 3d_offset
-        # group (the edge-fusion target) run densely; every other group runs
-        # on the 3x3 neighbourhoods of the top-K peaks, where the centre of a
-        # padded 3x3 conv equals the dense conv at the peak.
-        if self.training:
-            raise RuntimeError("lazy_topk is an inference-only path")
-        K = self.cfg.test.detections_per_img
-        scores, indexs, clses, ys, xs = select_topk(nms_hm(hm), K=K)
-        xi, yi = xs.long(), ys.long()
-        fpad = nn.functional.pad(features, (1, 1, 1, 1))  # (B, C, H+2, W+2)
-        Wp = W + 2
-        r3 = torch.arange(3, device=features.device)
-        nb_idx = ((yi[:, :, None] + r3) * Wp)[:, :, :, None] + (xi[:, :, None] + r3)[:, :, None, :]
-        nb = torch.gather(
-            fpad.reshape(B, C, (H + 2) * Wp), 2,
-            nb_idx.reshape(B, 1, K * 9).expand(B, C, K * 9),
-        )  # (B, C, K*9)
-        nb = nb.view(B, C, K, 3, 3).permute(0, 2, 1, 3, 4).reshape(B * K, C, 3, 3)
-
-        pois = []
-        for gi, heads in enumerate(self.reg_heads):
-            feat = None if gi == og else self.reg_features[gi](nb)[:, :, 1:2, 1:2]
-            for ki, conv in enumerate(heads):
-                if gi == og:
-                    full = offset_out if ki == ok else conv(offset_feat)
-                    poi = torch.gather(
-                        full.reshape(B, full.shape[1], H * W), 2,
-                        indexs[:, None, :].expand(B, full.shape[1], K),
-                    ).permute(0, 2, 1)  # (B, K, ch)
-                else:
-                    poi = conv(feat).reshape(B, K, -1)
-                pois.append(poi)
-        return {
-            "cls": hm,
-            "reg_pois": torch.cat(pois, dim=-1).float(),
-            "scores": scores,
-            "clses": clses,
-            "points_xy": torch.stack([xs, ys], dim=-1),
-        }
+                    if gi == og:
+                        full = offset_out if ki == ok else conv(offset_feat)
+                        poi = torch.gather(
+                            full.reshape(B, full.shape[1], H * W), 2,
+                            indexs[:, None, :].expand(B, full.shape[1], K),
+                        ).permute(0, 2, 1)  # (B, K, ch)
+                    else:
+                        poi = conv(feat).reshape(B, K, -1)
+                    pois.append(poi)
+            return {
+                "cls": hm,
+                "reg_pois": torch.cat(pois, dim=-1).float(),
+                "scores": scores,
+                "clses": clses,
+                "points_xy": torch.stack([xs, ys], dim=-1),
+            }

@@ -30,7 +30,8 @@ import os
 from typing import Callable, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
+
+from ..utils.profiling import span
 
 SOLVER = os.environ.get("DCD_SINKHORN_SOLVER", "chol")
 _CG_TOL = 1e-8
@@ -81,7 +82,7 @@ def sinkhorn_scaling(M: torch.Tensor, r: Optional[torch.Tensor] = None,
     """(P, iterations): the transport matrix for cost M (b, m, n) with
     marginals r (b, m) and c (b, n) (uniform when None), and the number of
     scaling iterations run."""
-    with record_function("sinkhorn.scaling"):
+    with span("sinkhorn.scaling"):
         b, m, n = M.shape
         K = torch.exp(-lmbda * torch.clamp(M, max=max_distance))
         if K_DTYPE == "bfloat16":
@@ -164,7 +165,7 @@ def _sinkhorn_vjp_dense(P: torch.Tensor, lmbda: float, v: torch.Tensor) -> torch
     """Implicit gradient dJ/dM (b, m*n) from dJ/dP (b, m*n) at the transport
     P (b, m, n): one Cholesky of the Schur complement S per sample and a
     block substitution, as the JAX package's ``_sinkhorn_vjp_dense``."""
-    with record_function("sinkhorn.vjp"):
+    with span("sinkhorn.vjp"):
         b, m, n = P.shape
         B = lmbda * P
         hinv = B.reshape(b, -1)  # vec of the H⁻¹ diagonal
@@ -183,10 +184,10 @@ def _sinkhorn_vjp_dense(P: torch.Tensor, lmbda: float, v: torch.Tensor) -> torch
         if SOLVER == "cg":
             x2 = _schur_solve_cg(B1, d1inv, d2, t)
         else:
-            with record_function("sinkhorn.schur_product"):
+            with span("sinkhorn.schur_product"):
                 S = torch.bmm((B1 * d1inv[:, :, None]).transpose(1, 2), B1).neg_()
                 S.diagonal(dim1=-2, dim2=-1).add_(d2)
-            with record_function("sinkhorn.cholesky"):
+            with span("sinkhorn.cholesky"):
                 x2 = torch.cholesky_solve(t[..., None], _cholesky(S))[..., 0]
             del S
         x1 = d1inv * (u1 - _bmv(B1, x2))

@@ -28,7 +28,8 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
+
+from ..utils.profiling import span
 
 # a collective waits this long for the other ranks (rank 0 alone runs
 # --generate_for_GMW while the others wait at a barrier)
@@ -190,7 +191,7 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        with record_function("parallel.all_reduce_sum"):
+        with span("parallel.all_reduce_sum"):
             grad = grad.clone()
             dist.all_reduce(grad, group=ctx.group)
         return grad, None
@@ -200,7 +201,7 @@ def all_reduce_sum(x: torch.Tensor, group: Optional[dist.ProcessGroup],
                    differentiable: bool = False) -> torch.Tensor:
     """``x`` summed over ``group`` (a new tensor); with ``differentiable``
     the sum carries gradients back to every rank's input."""
-    with record_function("parallel.all_reduce_sum"):
+    with span("parallel.all_reduce_sum"):
         if differentiable:
             return _AllReduceSum.apply(x, group)
         out = x.detach().clone()

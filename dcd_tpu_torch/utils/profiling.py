@@ -3,9 +3,28 @@
 The reference times the forward with a tic/toc timer around
 ``torch.cuda.synchronize`` (DGDE/engine/inference.py:39-46); the JAX package
 traces with ``jax.profiler``. Here: a ``torch.profiler`` session that writes a
-chrome trace (CPU and, when a card is present, its kernels), named regions
-for that trace, and a step-time meter that waits for the card before it
-reads the clock.
+chrome trace (CPU and, when a card is present, its kernels), the named spans
+that the port opens at its layer boundaries for that trace, and a step-time
+meter that waits for the card before it reads the clock.
+
+The port's spans (:func:`span`), one per call where each is opened:
+
+* inference: ``dcd.infer`` (``engine/infer.py::infer``), inside it
+  ``dcd.infer.h2d`` (the inputs' copies), ``dcd.model``
+  (``KeypointDetector.forward``), ``dcd.postprocess``; inside the model
+  ``dcd.trunk`` (DLA-34), ``dcd.decoder`` (DLAUp and IDAUp), inside it
+  ``dcd.upsample`` (each transposed conv) and ``dcd.dcn`` (each DCN: the
+  offset conv and the deformable conv; the deeper head's stems open it
+  inside ``dcd.heads``), then ``dcd.heads`` (``Predictor.forward``);
+* training: ``dcd.train_step``, inside it ``dcd.train.h2d``
+  (``batch_to_device``), then per microbatch ``dcd.train.forward`` (the
+  model's spans nest inside), ``dcd.train.loss`` and
+  ``dcd.train.backward``, then ``dcd.train.grad_norm`` (the logs' norm) and
+  ``dcd.optimizer`` (``Optimizer.step``; ``dcd.optimizer.clip`` and torch's
+  own ``Optimizer.step#AdamW.step`` inside);
+* stage 2 and data parallelism: ``gmw.towers``, ``gmw.cost_matrix``,
+  ``sinkhorn.scaling``, ``sinkhorn.vjp``, ``sinkhorn.schur_product``,
+  ``sinkhorn.cholesky`` and ``parallel.all_reduce_sum``.
 """
 
 from __future__ import annotations
@@ -13,9 +32,11 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Iterator, List, Optional
+from typing import ContextManager, Iterator, List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.autograd.profiler import record_function
 
 TRACE_FILE = "trace.json"
 
@@ -37,9 +58,26 @@ def trace_session(logdir: Optional[str]) -> Iterator[Optional[torch.profiler.pro
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
-def step_annotation(name: str) -> torch.profiler.record_function:
-    """A named region of the trace (``with step_annotation("train"): ...``)."""
-    return torch.profiler.record_function(name)
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str) -> ContextManager:
+    """A named span of the trace (``with span("dcd.model"): ...``).
+
+    While a profiler runs (:func:`trace_session`, or any
+    ``torch.profiler.profile``) this is a ``record_function`` range: the
+    profiler records it on the clock of the card's events, so a reader of
+    the trace can give each kernel, copy or idle gap to the spans that held
+    the host call that launched it (launch correlation). Without a profiler
+    it is one check and a shared no-op context; ``record_function`` is not
+    entered.
+
+    A backward's kernels launch from autograd's device thread while the
+    calling thread waits inside its span (``dcd.train.backward``); the
+    spans hold them by launch time, not by thread."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return record_function(name)
 
 
 def _sync() -> None:

@@ -9,7 +9,7 @@
   ``postprocess`` on those weights, each column within ROWS_TOL of its
   largest magnitude, and the PNGs are its rows drawn.
 * ``utils/profiling.py``: ``trace_session`` writes a chrome trace holding a
-  ``step_annotation`` region; ``StepTimer`` leaves its warm-up out.
+  ``span`` region; ``StepTimer`` leaves its warm-up out.
 """
 
 import dataclasses
@@ -169,7 +169,7 @@ def test_trace_session_writes_a_chrome_trace_with_the_annotation(tmp_path):
     with profiling.trace_session(None) as prof:
         assert prof is None
     with profiling.trace_session(str(tmp_path / "trace")) as prof:
-        with profiling.step_annotation("gmw_step"):
+        with profiling.span("gmw_step"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     assert any(e.key == "gmw_step" for e in prof.key_averages())
     with open(tmp_path / "trace" / profiling.TRACE_FILE) as f:
