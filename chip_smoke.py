@@ -26,6 +26,21 @@ Phases, each printing one line with its own seconds:
    At batch 64 (the bench protocol's), checked on images 0-1 against the
    plain version (at 64 it needs ~18 GB per bilinear corner) and timed
    through the wrapper.
+3b. upsample: the decoder's upsampling fused with its skip add
+   (``upsample_add``, ``csrc/upsample.cu``) at the eight upsamplings of a
+   384x1280 forward (UPSAMPLE_SHAPES), in bf16 at batch 64 and in fp32 at
+   batch 8, random per-channel weights and random skips, channels-last:
+   fp32 against the plain version (``F.conv_transpose2d`` + add, TF32 off)
+   within UPSAMPLE_FP32_TOL of the output's largest magnitude; bf16 against
+   the fp32 plain result on the same bf16 values within one bf16 rounding of
+   each of the kernel's two (2^-8 |up| + 2^-8 |out|, element by element, and
+   FP32_ORDER of the sum of |w x| for the order of the fp32 sums); twice,
+   bitwise equal, and the same bits from inputs in NCHW memory. Timed with CUDA events (turns of plain, kernel,
+   kernel, plain) beside the fused bound (each input, skip and output byte
+   once at 3.35 TB/s) and beside the plain version, which is the library's
+   transposed conv and add (``library_ms``; the transposed conv alone beside
+   it). Phases 4 and 5 check 8 ``upsample_add_f32`` and ``upsample_add_bf16``
+   launches per forward.
 4. main path: ``build_detector(dgde_run_config())`` with seeded random
    weights, trained-checkpoint offset statistics and BN statistics
    calibrated on the batch; ``infer`` on 2 images of 384x1280 with the
@@ -81,7 +96,10 @@ Phases, each printing one line with its own seconds:
    gradient for every parameter and a non-zero one for every DCN
    weight and offset conv; a second trainer from the same seed must reach
    bitwise equal losses and parameters in 3 steps; the parity check again,
-   at non-zero offsets, gradients to 1e-3; the step time (median of 3) without and with the
+   at non-zero offsets: with every BN in its linear range, gradients to
+   1e-3, and the whole step within the larger of 1e-3 and the plain step's
+   own change there under rounding-size changes of the DCNs' outputs
+   (STEP_OWN_EPS states why); the step time (median of 3) without and with the
    deterministic mode (``Trainer.deterministic``), and one profiled step.
 7b. train_bf16: ``build_trainer`` with ``cfg.model.fp16`` at full width,
    batch 2: the step's losses and gradients (all, and by part of the
@@ -146,7 +164,10 @@ Phases, each printing one line with its own seconds:
    val id, ``result.json``, 16 launches per image and the warm-up, images/s
    with the warm-up and the panels excluded, two panels of the frame and
    its bird's-eye view; images 0-1 at batch 1 with the kernel against the plain
-   DCN (same peaks, heads and rows at threshold 0 within PATH_TOL of scale).
+   DCN: the heat maps within PATH_TOL of scale, the same peaks but for ties
+   (``peak_swaps``: a peak one side chose alone must miss the other side's
+   choice by at most PATH_TOL of scale), and the heads and the rows at
+   threshold 0 at the peaks both chose within PATH_TOL of scale.
    The AP's host seconds with the native matcher and the Python loop, whose
    results must be equal, on the eval's txt files and on the val labels fed
    back as detections (score 1, locations moved by up to 1 mm), which must give
@@ -236,6 +257,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dcd_tpu_torch.config import dgde_run_config
 from dcd_tpu_torch.data.edges import KITTI_IMAGE_SIZE, KITTI_P2, padded_edge_indices
@@ -255,7 +277,7 @@ from dcd_tpu_torch.evaluation.kitti_eval import (evaluate_from_files, get_label_
                                                  get_official_eval_result)
 from dcd_tpu_torch.models.layers import DCN
 from dcd_tpu_torch.models.predictor import Converter_key2channel
-from dcd_tpu_torch.ops import dcn_cuda
+from dcd_tpu_torch.ops import dcn_cuda, upsample_cuda
 from dcd_tpu_torch.ops.dcn_cuda import DeformConv2dFunction
 from dcd_tpu_torch.ops.dcn import dcn_bwd_pom_plain, dcn_bwd_x_plain, deform_conv2d_clamped
 from dcd_tpu_torch.ops.nms import nms_hm, select_topk
@@ -304,6 +326,24 @@ PAIR_DEPTH_TERMS = ("pairs_kpts_depth_loss", "corner_loss")
 DEEPER_HEAD_OWN_EPS = 4e-6
 DEEPER_HEAD_OWN_DRAWS = (("stems", 0), ("all", 1))
 FP32_TOL, BF16_TOL, PATH_TOL = 1e-4, 2e-2, 1e-4
+# (C, H, W, f, layers) of the upsamplings of one 384x1280 forward: the
+# decoder's eight depthwise transposed convs, each fused with its skip add
+UPSAMPLE_SHAPES = [
+    (256, 12, 40, 2, 1),
+    (128, 24, 80, 2, 2),
+    (64, 48, 160, 2, 4),
+    (64, 24, 80, 4, 1),
+]
+UPSAMPLE_LAUNCHES = 8
+# fp32 kernel against the transposed conv + add: the same four products
+# summed in another order
+UPSAMPLE_FP32_TOL = 1e-5
+# bf16's unit roundoff: one rounding to bf16 moves a value by at most this
+# share of it
+BF16_ROUNDING = 2.0 ** -8
+# four fp32 roundings (2^-24 each) of the terms: the two sums of four
+# products, in two orders
+FP32_ORDER = 2.0 ** -22
 # bf16 against fp32 heads on the same features, and the bf16 kernel against
 # the plain form over the whole forward: the share of the 50 peaks (and of
 # the valid rows) that both must choose; a peak whose score is within bf16's
@@ -331,6 +371,16 @@ TRAIN_STEPS = 3
 # held to STEP_GRAD_TOL, as is the check after 3 steps. STEP0_GRAD_TOL, for
 # the seeded weights' step 0 alone, is three times its reading.
 STEP_LOSS_TOL, STEP_GRAD_TOL, STEP0_GRAD_TOL = 1e-4, 1e-3, 1e-2
+# after 3 steps the state is one the fp32 trajectory reached, and rounding
+# moves it: the upsampling kernel sums its four products in another order
+# than cuDNN, and the trajectory lands elsewhere, where the plain step
+# against itself, with every DCN's output times (1 + eps randn), already
+# parts from itself beyond STEP_GRAD_TOL. So the check after the steps is
+# made with every BN in its linear range at STEP_GRAD_TOL, and the whole
+# step is held to the larger of STEP_GRAD_TOL and that own change at eps
+# STEP_OWN_EPS (K1's fp32 error in phase 3 is 1.3e-6 to 2.0e-6 of each
+# output's scale: the kernels' rounding size), over two draws
+STEP_OWN_EPS, STEP_OWN_DRAWS = 1e-6, (0, 1)
 PAIR_LOSS_TOL, PAIR_HEADS_FRO_TOL = 5e-3, 5e-2
 PAIR_TERMS = ("pairs_kpts_depth_loss", "extra_all_MAE", "edges_MAE", "corner_loss")
 # gen step, kernel against plain, of each field's scale: keypoints and yaw
@@ -631,6 +681,103 @@ def phase_kernel():
     return rows, head_rows
 
 
+def upsample_bound_ms(C, H, W, f, batch, dtype):
+    """Least time of the fused upsampling at this shape: x, skip and out
+    each once over HBM, and the fp32 weights."""
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * batch * C * H * W * (1 + 2 * f * f) + 4 * C * 4 * f * f
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def transposed_conv(x, w, f):
+    """The upsampling alone, ``F.conv_transpose2d`` in x's type."""
+    return F.conv_transpose2d(x, w.to(x.dtype), None, f, f // 2, 0, x.shape[1])
+
+
+def phase_upsample():
+    """The upsampling kernel at the eight shapes: bf16 at batch 64 and fp32
+    at batch 8 against the plain version, bitwise repeatable; timed beside
+    its bound, the plain version (the library's transposed conv and add)
+    and the transposed conv alone."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for C, H, W, f, count in UPSAMPLE_SHAPES:
+        for dtype, batch, tag in ((torch.bfloat16, BIG_BATCH, "bf16"), (torch.float32, 8, "fp32")):
+            t0 = time.perf_counter()
+            cl = torch.channels_last
+            x = torch.randn((batch, C, H, W), generator=gen, device="cuda").to(dtype, memory_format=cl)
+            skip = torch.randn((batch, C, f * H, f * W), generator=gen, device="cuda").to(
+                dtype, memory_format=cl)
+            w = torch.randn((C, 1, 2 * f, 2 * f), generator=gen, device="cuda") * 0.5
+            got = upsample_cuda.upsample_add(x, w, skip, f)
+            again = upsample_cuda.upsample_add(x, w, skip, f)
+            if not torch.equal(got, again):
+                raise AssertionError(f"upsample {tag} {C}@{H}x{W} f={f}: two runs differ")
+            if not got.is_contiguous(memory_format=cl):
+                raise AssertionError(f"upsample {tag}: the output is not channels-last")
+            # maps in NCHW memory are copied to NHWC first: the same bits
+            nchw = upsample_cuda.upsample_add(x.contiguous(), w, skip.contiguous(), f)
+            if not torch.equal(nchw, got):
+                raise AssertionError(f"upsample {tag} {C}@{H}x{W} f={f}: NCHW inputs, other bits")
+            del nchw
+            row = dict(C=C, H=H, W=W, f=f, count=count, batch=batch, dtype=tag)
+            if dtype == torch.float32:
+                err, scale = check_kernel(got, upsample_cuda.upsample_add_plain(x, w, skip, f),
+                                          UPSAMPLE_FP32_TOL, f"upsample fp32 {C}@{H}x{W} f={f}")
+                row.update(max_abs_err=err, scale=scale)
+            else:
+                # the fp32 result on the same bf16 values (weights rounded as
+                # the kernel rounds them): the kernel rounds up, then up + skip
+                wb = w.bfloat16().float()
+                up32 = transposed_conv(x.float(), wb, f)
+                want = up32 + skip.float()
+                # one bf16 rounding of each: of up (2^-8 |up| at most) and of
+                # the sum (2^-8 |out|); and the fp32 sums' order, a few fp32
+                # roundings of the sum of |w x|
+                order = FP32_ORDER * transposed_conv(x.float().abs(), wb.abs(), f)
+                gap = (got.float() - want).abs() / (BF16_ROUNDING * (up32.abs() + want.abs()) + order)
+                ulps = float(torch.nan_to_num(gap, nan=0.0).max())
+                plain = upsample_cuda.upsample_add_plain(x, w, skip, f)
+                same = float((got == plain).float().mean())
+                if not ulps <= 1.0:
+                    raise AssertionError(f"upsample bf16 {C}@{H}x{W} f={f}: {ulps} of the bf16 "
+                                         "roundings' bound from the fp32 result")
+                row.update(bf16_roundings=ulps, equal_to_plain_share=same,
+                           max_abs_err_vs_plain=float((got.float() - plain.float()).abs().max()))
+                del up32, want, gap, plain, order
+            del got, again
+            kernel = lambda: upsample_cuda.upsample_add(x, w, skip, f)
+            plain = lambda: upsample_cuda.upsample_add_plain(x, w, skip, f)
+            up_only = lambda: transposed_conv(x, w, f)
+            times = timed_turns([("plain", plain), ("kernel", kernel), ("kernel", kernel),
+                                 ("up_only", up_only), ("plain", plain)], KERNEL_TURNS)
+            row.update(ms=times["kernel"], library_ms=times["plain"],
+                       library_up_only_ms=times["up_only"],
+                       bound_ms=upsample_bound_ms(C, H, W, f, batch, dtype))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            del x, skip
+            rows.append(row)
+            err_text = (f"err {row['max_abs_err']:.3g} (max {row['scale']:.3g})" if tag == "fp32"
+                        else f"{row['bf16_roundings']:.3f} of two bf16 roundings from fp32, "
+                             f"{100 * row['equal_to_plain_share']:.2f}% bitwise the plain bf16")
+            say("upsample", time.perf_counter() - t0,
+                f"{tag} batch {batch} {C} ch {H}x{W} f={f} x{count}: {err_text}; bitwise "
+                f"repeatable; {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, "
+                f"{100 * row['bound_share']:.1f}% of it; plain = library transposed conv + add "
+                f"{row['library_ms']:.4f}, transposed conv alone {row['library_up_only_ms']:.4f})")
+    totals = {}
+    for tag in ("bf16", "fp32"):
+        mine = [r for r in rows if r["dtype"] == tag]
+        totals[tag] = {k: sum(r[k] * r["count"] for r in mine)
+                       for k in ("ms", "bound_ms", "library_ms", "library_up_only_ms")}
+        totals[tag]["batch"] = mine[0]["batch"]
+    say("upsample", 0.0, "per forward, the eight layers: " + "; ".join(
+        f"{tag} batch {t['batch']}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain = library "
+        f"{t['library_ms']:.4f}, transposed conv alone {t['library_up_only_ms']:.4f})"
+        for tag, t in totals.items()))
+    return dict(shapes=rows, per_forward=totals)
+
+
 def median_ms(fn, n=5):
     """Median host ms of ``n`` calls of ``fn``, each ending in a
     synchronisation, after one warm-up call; and all of them."""
@@ -717,9 +864,13 @@ def phase_main_path():
     if launches != 16 or fwd_launches() != 16:
         raise AssertionError(f"the DCN kernels launched {dcn_cuda.deform_conv2d.launches_by_kernel} "
                              "in one fp32 forward, not dcn_fwd_f32 16 times")
+    up_launches = dict(upsample_cuda.upsample_add.launches_by_kernel)
+    if up_launches != {"upsample_add_f32": UPSAMPLE_LAUNCHES, "upsample_add_bf16": 0}:
+        raise AssertionError(f"the upsampling kernel launched {up_launches} in one fp32 forward, "
+                             f"not upsample_add_f32 {UPSAMPLE_LAUNCHES} times")
     lines = format_kitti_lines(dets[0].cpu(), out["valid"][0].cpu(), cfg.datasets.detect_classes)
     say("main path", time.perf_counter() - t0,
-        f"rows {tuple(dets.shape)} finite, {launches} kernel launches, "
+        f"rows {tuple(dets.shape)} finite, {launches} kernel launches, {up_launches}, "
         f"{int(out['valid'].sum())} valid rows, {len(lines)} KITTI lines in image 0")
 
     t0 = time.perf_counter()
@@ -755,7 +906,8 @@ def phase_main_path():
         f"(busy {100 * prof['busy_share']:.1f}%): {kinds}")
     ctx = dict(cfg=cfg, model=model, gen=gen, inputs=(images, edge_idx, edge_len),
                post=(calib, pad_t, size_t))
-    return dict(launches=launches, forward_ms=fwd_ms, images_per_s=BATCH * 1e3 / fwd_ms,
+    return dict(launches=launches, upsample_launches=up_launches, forward_ms=fwd_ms,
+                images_per_s=BATCH * 1e3 / fwd_ms,
                 forward_ms_all=fwd_all,
                 kernel_vs_plain_rel_err=errs, valid_rows=int(out["valid"].sum()), profile=prof), ctx
 
@@ -769,6 +921,38 @@ def matched_rows(got, want):
         where = {tuple(p): i for i, p in enumerate(pg[b])}
         out += [(b, where[tuple(p)], j) for j, p in enumerate(pw[b]) if tuple(p) in where]
     return [np.array(x, dtype=np.int64) for x in zip(*out)] if out else [np.zeros(0, np.int64)] * 3
+
+
+def peak_swaps(got, want):
+    """The peaks one forward chose and the other did not, on the lazy path's
+    outputs, each as (image, x, y, class, score) of the side that chose it,
+    and the largest ``miss`` over both sides' heat-map scale: how far the
+    other side's heat map falls short of choosing that point, below its 3x3
+    maximum (NMS) or below its lowest chosen score. Near-equal scores trade
+    places there: a swap whose miss is within the heat maps' own gap is a
+    tie, not another choice. Also the pairs (image, got index, want index)
+    of the peaks both chose."""
+    def peaks(out, b):
+        keys = torch.cat([out["points_xy"][b], out["clses"][b, :, None]], 1).long().tolist()
+        return {tuple(k): i for i, k in enumerate(keys)}
+
+    swaps, pairs, miss = [], [], 0.0
+    scale = max(float(got["cls"].abs().max()), float(want["cls"].abs().max()))
+    for b in range(want["points_xy"].shape[0]):
+        chosen = [peaks(got, b), peaks(want, b)]
+        pairs += [(b, i, chosen[1][k]) for k, i in chosen[0].items() if k in chosen[1]]
+        for side, (mine, theirs, out) in enumerate(((got, want, chosen[1]), (want, got, chosen[0]))):
+            hm = theirs["cls"][b].permute(2, 0, 1)  # (C, H, W)
+            pooled = F.max_pool2d(hm[None], 3, stride=1, padding=1)[0]
+            lowest = float(theirs["scores"][b].min())
+            for (x, y, c), i in chosen[side].items():
+                if (x, y, c) in out:
+                    continue
+                short = max(float(pooled[c, y, x] - hm[c, y, x]), lowest - float(hm[c, y, x]), 0.0)
+                miss = max(miss, short / scale)
+                swaps.append((b, x, y, c, float(mine["scores"][b, i])))
+    return swaps, miss, [np.array(x, dtype=np.int64) for x in zip(*pairs)] if pairs else [
+        np.zeros(0, np.int64)] * 3
 
 
 def heads_errors(cfg, got, want):
@@ -822,9 +1006,12 @@ def phase_main_path_bf16(ctx):
     dcn_cuda.reset_launch_counts()
     out = infer(m16, images, edge_idx, edge_len, calib, pad_t, size_t)
     torch.cuda.synchronize()
-    launches = dict(dcn_cuda.deform_conv2d.launches_by_kernel)
-    if launches != {"dcn_fwd_f32": 0, "dcn_fwd_bf16": 16}:
-        raise AssertionError(f"the bf16 forward launched {launches}, not dcn_fwd_bf16 16 times")
+    launches = {**dcn_cuda.deform_conv2d.launches_by_kernel,
+                **upsample_cuda.upsample_add.launches_by_kernel}
+    if launches != {"dcn_fwd_f32": 0, "dcn_fwd_bf16": 16, "upsample_add_f32": 0,
+                    "upsample_add_bf16": UPSAMPLE_LAUNCHES}:
+        raise AssertionError(f"the bf16 forward launched {launches}, not dcn_fwd_bf16 16 times "
+                             f"and upsample_add_bf16 {UPSAMPLE_LAUNCHES} times")
     dets = out["dets"]
     if tuple(dets.shape) != (BATCH, 50, 14) or dets.dtype != torch.float32 or \
             not bool(torch.isfinite(dets).all()):
@@ -1394,8 +1581,26 @@ def phase_train():
         f"a second trainer from seed 0: {TRAIN_STEPS} steps give bitwise equal losses and parameters")
 
     t0 = time.perf_counter()
-    parity = step_parity(trainer, batch, STEP_GRAD_TOL)
-    say("train", time.perf_counter() - t0, f"after {TRAIN_STEPS} steps kernel vs plain: {parity}")
+    # after the steps, at non-zero offsets: with every BN in its linear range
+    # at STEP_GRAD_TOL, as at step 0; the whole step at the larger of
+    # STEP_GRAD_TOL and the plain step's own change at this state under
+    # rounding-size changes of the DCNs' outputs (STEP_OWN_EPS)
+    linear = copy.deepcopy(trainer)
+    linear_range_bn(linear.model)
+    parity_linear = step_parity(linear, batch, STEP_GRAD_TOL, any_bias_by_weight=True)
+    del linear
+    parity = step_parity(trainer, batch, float("inf"))
+    own = [step_parity(trainer, batch, float("inf"), first="dense", perturb=(STEP_OWN_EPS, "all", draw))
+           for draw in STEP_OWN_DRAWS]
+    limits = {key: max(STEP_GRAD_TOL, *(o[key] for o in own)) for key in ("grad", "bn_bias")}
+    if not all(parity[key] <= limit for key, limit in limits.items()):
+        raise AssertionError(f"after {TRAIN_STEPS} steps, kernel vs plain: {parity}, over the limits "
+                             f"{limits} (the plain step's own change: {own})")
+    say("train", time.perf_counter() - t0,
+        f"after {TRAIN_STEPS} steps kernel vs plain, every BN in its linear range: {parity_linear} "
+        f"(tol {STEP_GRAD_TOL}); the whole step: {parity} (limits {limits}); the plain step against "
+        f"itself with the DCNs' outputs x (1 + {STEP_OWN_EPS:g} randn): "
+        + "; ".join(f"draw {d}: {o}" for d, o in zip(STEP_OWN_DRAWS, own)))
 
     t0 = time.perf_counter()
     # what the deterministic mode costs: the same steps without it, then back
@@ -1411,7 +1616,8 @@ def phase_train():
         f"profiled step: wall {prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms "
         f"(busy {100 * prof['busy_share']:.1f}%): {kinds}")
     return dict(launches=launches, steps=steps, parity_step0=parity0,
-                parity_step0_linear_bn=parity0_linear, parity=parity,
+                parity_step0_linear_bn=parity0_linear, parity=parity, parity_linear_bn=parity_linear,
+                parity_own=own, parity_limits=limits,
                 step_ms=step_ms, step_ms_all=step_all, step_ms_nondeterministic=loose_ms,
                 step_ms_nondeterministic_all=loose_all, images_per_s=BATCH * 1e3 / step_ms,
                 objects=n_obj, profile=prof)
@@ -2374,7 +2580,7 @@ def phase_cli(root):
         cfg0 = dataclasses.replace(cfg, test=dataclasses.replace(
             cfg.test, detections_threshold=0.0, uncertainty_as_confidence=False))
         ds = KITTIDataset(cfg, root, is_train=False, augment=False)
-        errs, share, n_matched = {}, [], 0
+        errs, share, n_matched, swaps, misses = {}, [], 0, [], []
         for i in range(2):
             s = ds.get_sample(i)
             t = s.targets
@@ -2389,20 +2595,31 @@ def phase_cli(root):
                 p = model(*args, lazy_topk=True)
                 set_dcn_impl(model, "auto")
                 rows_k, rows_p = postprocess(cfg0, k, *post), postprocess(cfg0, p, *post)
-            if not torch.equal(k["points_xy"], p["points_xy"]):
-                raise AssertionError(f"batch-1 forward of {s.img_id}: the kernel and the plain DCN "
-                                     "chose other peaks")
-            for key in ("cls", "scores", "reg_pois"):
-                errs[key] = max(errs.get(key, 0.0),
-                                float((k[key] - p[key]).abs().max()) / float(p[key].abs().max()))
-            hit, total = rows_matched(rows_k, rows_p, PATH_TOL)
-            share.append(hit)
-            n_matched += total
-        if max(errs.values()) > PATH_TOL or min(share) < 1.0 or not n_matched:
-            raise AssertionError(f"batch-1 forward kernel vs plain: rel errs {errs}, rows matched {share}")
+            # the seeded weights score every point near 0.0151, some 1e-8
+            # apart, so rounding may swap a peak at the 50th place or in NMS:
+            # a swap must be such a tie (its miss within PATH_TOL of scale),
+            # and the heads and rows are compared at the peaks both chose
+            swapped, miss, (bi, ik, ip) = peak_swaps(k, p)
+            swaps += swapped
+            misses.append(miss)
+            errs["cls"] = max(errs.get("cls", 0.0), float((k["cls"] - p["cls"]).abs().max())
+                              / float(p["cls"].abs().max()))
+            for key in ("scores", "reg_pois"):
+                errs[key] = max(errs.get(key, 0.0), float((k[key][bi, ik] - p[key][bi, ip]).abs().max())
+                                / float(p[key].abs().max()))
+            dk, dp = rows_k["dets"].cpu().numpy(), rows_p["dets"].cpu().numpy()
+            scale = np.abs(dp).max(axis=(0, 1))
+            hit = np.all(np.abs(dk[bi, ik] - dp[bi, ip]) <= PATH_TOL * scale + 1e-6, axis=1)
+            share.append(float(hit.mean()) if len(hit) else 0.0)
+            n_matched += len(hit)
+        if max(errs.values()) > PATH_TOL or max(misses) > PATH_TOL or min(share) < 1.0 or not n_matched:
+            raise AssertionError(f"batch-1 forward kernel vs plain: rel errs {errs}, peaks one side "
+                                 f"chose alone {swaps} (miss {misses}), rows matched {share}")
         say("cli", time.perf_counter() - t0,
-            f"images 0-1 at batch 1, kernel vs plain DCN: same 50 peaks, rel err {errs}, all "
-            f"{n_matched} rows (threshold 0, no depth confidence) within {PATH_TOL} of scale")
+            f"images 0-1 at batch 1, kernel vs plain DCN: {n_matched} peaks both chose, "
+            f"{len(swaps)} chosen by one side alone, each a tie (largest miss {max(misses):.3g} of "
+            f"scale, tol {PATH_TOL}): {swaps}; rel err {errs}, all {n_matched} rows at those peaks "
+            f"(threshold 0, no depth confidence) within {PATH_TOL} of scale")
 
         t0 = time.perf_counter()
         native.library()  # the matcher's build, kept out of its time
@@ -2841,6 +3058,7 @@ def main():
         + ", ".join(f"{k} {v}" for k, v in mma.items()))
 
     shapes, head_shapes = phase_kernel()
+    upsample = phase_upsample()
     main_path, ctx = phase_main_path()
     main_bf16 = phase_main_path_bf16(ctx)
     torch.cuda.empty_cache()
@@ -2935,9 +3153,30 @@ def main():
                     "max_abs_err": max(r[errors][gname]["max_abs_err"] for r in head_backward
                                        for gname in grads)},
             })
+    # the upsampling per forward: bf16 at batch 64, fp32 at batch 8; its
+    # plain version is the library's transposed conv and add
+    for tag, launches in (("fp32", main_path["upsample_launches"]["upsample_add_f32"]),
+                          ("bf16", main_bf16["launches"]["upsample_add_bf16"])):
+        mine = [r for r in upsample["shapes"] if r["dtype"] == tag]
+        kernels.append({
+            "name": "upsample_add" + ("_bf16" if tag == "bf16" else ""),
+            "route": "cuda",
+            "source": "dcd_tpu_torch/csrc/upsample.cu",
+            "replaces": None,  # BilinearUp, dcd_tpu/models/layers.py:205, is plain XLA
+            "launches": launches,
+            "batch": mine[0]["batch"],
+            "max_abs_err": max(r["max_abs_err" if tag == "fp32" else "max_abs_err_vs_plain"]
+                               for r in mine),
+            "ms": upsample["per_forward"][tag]["ms"],
+            "plain_ms": upsample["per_forward"][tag]["library_ms"],
+            "bound_ms": upsample["per_forward"][tag]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": upsample["per_forward"][tag]["library_ms"],
+        })
     say("done", time.perf_counter() - t0, "all phases passed")
     details = {"card": smi, "build_seconds": built["seconds"], "tensor_core_instructions": mma,
-               "shapes": shapes, "head_shapes": head_shapes, "main_path": main_path,
+               "shapes": shapes, "head_shapes": head_shapes, "upsample": upsample,
+               "main_path": main_path,
                "main_path_bf16": main_bf16, "backward": backward, "head_backward": head_backward,
                "backward_radius": radius, "train": train, "train_bf16": train_bf16,
                "deeper_head": deeper_head, "oracle": oracle, "gen": gen, "gmw": gmw, "cli": cli,

@@ -136,9 +136,9 @@ class IDAUp(nn.Module):
         for i in range(startp + 1, endp):
             k = i - startp
             proj = getattr(self, f"proj_{k}")(layers[i])
-            with span("dcd.upsample"):
-                up = getattr(self, f"up_{k}")(proj)
-            layers[i] = getattr(self, f"node_{k}")(up + layers[i - 1])
+            with span("dcd.upsample"):  # the upsampling and the add, one kernel
+                up = getattr(self, f"up_{k}")(proj, skip=layers[i - 1])
+            layers[i] = getattr(self, f"node_{k}")(up)
         return layers
 
 

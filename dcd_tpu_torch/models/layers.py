@@ -33,6 +33,7 @@ from torch import nn
 
 from ..ops.dcn import deform_conv2d_clamped, deform_conv2d_gather
 from ..ops.dcn_cuda import DeformConv2dFunction
+from ..ops.upsample_cuda import UpsampleAddFunction
 from ..parallel.mesh import all_reduce_sum
 from ..utils.profiling import span
 
@@ -58,12 +59,21 @@ class Conv1d(nn.Conv1d):
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` (no output size, no bias) that computes in its
-    input's type, as the JAX package's ``BilinearUp`` casts its kernel."""
+    """The depthwise f-fold upsampling of :func:`bilinear_up`:
+    ``nn.ConvTranspose2d(C, C, 2f, stride=f, padding=f // 2, groups=C,
+    bias=False)``, computed in its input's type, as the JAX package's
+    ``BilinearUp`` casts its kernel. ``forward(x, skip)`` returns
+    ``up(x) + skip``, the decoder's upsampling and the add after it, in one
+    pass of the upsampling kernel
+    (:class:`~dcd_tpu_torch.ops.upsample_cuda.UpsampleAddFunction`; on the
+    CPU its plain version)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), None, self.stride, self.padding,
-                                  self.output_padding, self.groups, self.dilation)
+    def __init__(self, channels: int, f: int):
+        super().__init__(channels, channels, 2 * f, stride=f, padding=f // 2, groups=channels,
+                         bias=False)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        return UpsampleAddFunction.apply(x, self.weight, skip, self.stride[0])
 
 
 @contextlib.contextmanager
@@ -258,9 +268,9 @@ def bilinear_kernel_1d(f: int) -> np.ndarray:
 def bilinear_up(channels: int, f: int) -> ConvTranspose2d:
     """Depthwise transposed conv initialised to bilinear upsampling
     (reference dla_dcn.py:422-425 + fill_up_weights). The JAX package
-    computes the same operator by its polyphase decomposition."""
-    up = ConvTranspose2d(channels, channels, f * 2, stride=f, padding=f // 2,
-                         groups=channels, bias=False)
+    computes the same operator by its polyphase decomposition, as the
+    port's kernel does."""
+    up = ConvTranspose2d(channels, f)
     k1 = torch.from_numpy(bilinear_kernel_1d(f)).float()
     with torch.no_grad():
         up.weight.copy_(torch.outer(k1, k1).expand_as(up.weight))

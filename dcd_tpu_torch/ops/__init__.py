@@ -1,1 +1,2 @@
-"""Geometry, NMS and the deformable conv (plain versions and the CUDA kernel wrapper)."""
+"""Geometry, NMS, the deformable conv and the decoder's upsampling (plain versions and
+the CUDA kernel wrappers)."""

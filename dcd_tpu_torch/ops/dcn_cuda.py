@@ -5,14 +5,14 @@ TPU kernel ``dcd_tpu/ops/dcn_pallas.py::_kernel_cw``) and
 ``dcd_tpu_torch/csrc/dcn_bwd.cu`` (the backward, replacing
 ``_bwd_pom_kernel_cw`` and ``_bwd_x_kernel_cw``); their source notes say how
 they are laid out. Each wrapper checks its arguments, allocates outputs and
-scratch, launches on PyTorch's current stream and counts its launches by C
-entry point in ``<wrapper>.launches_by_kernel``. Each takes fp32 or bf16
-inputs (x, mask, weight, and the cotangent for the backward; offsets fp32)
-and launches the entry point of that type (``dcn_fwd_f32`` or
-``dcn_fwd_bf16``, ``dcn_bwd_pom_f32`` or ``dcn_bwd_pom_bf16``,
-``dcn_bwd_x_f32`` or ``dcn_bwd_x_bf16``). A tensor on the CPU goes to the
-plain version (:mod:`dcd_tpu_torch.ops.dcn`); a CUDA tensor launches the
-kernel or raises.
+scratch and launches on PyTorch's current stream;
+``<wrapper>.launches_by_kernel`` shows its launches by C entry point. Each
+takes fp32 or bf16 inputs (x, mask, weight, and the cotangent for the
+backward; offsets fp32) and launches the entry point of that type
+(``dcn_fwd_f32`` or ``dcn_fwd_bf16``, ``dcn_bwd_pom_f32`` or
+``dcn_bwd_pom_bf16``, ``dcn_bwd_x_f32`` or ``dcn_bwd_x_bf16``). A tensor on
+the CPU goes to the plain version (:mod:`dcd_tpu_torch.ops.dcn`); a CUDA
+tensor launches the kernel or raises.
 
 :class:`DeformConv2dFunction` is the counterpart of the JAX package's custom
 VJP ``deform_conv2d_pallas``: forward by :func:`deform_conv2d`, backward by
@@ -98,15 +98,6 @@ def _check_bwd(x, offset, mask, weight, g) -> None:
                   ("g", g, (B, H, W, Cout), x.dtype)])
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    fn = getattr(cuda_build.library(), name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
-
-
 def _device_of(x: torch.Tensor) -> str:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {x.device}")
@@ -134,11 +125,10 @@ def deform_conv2d(
     Cout = weight.shape[3]
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
     name = _KERNELS[x.dtype]
-    _launch(name, x.device,
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            B, H, W, Cin, Cout, int(radius))
-    deform_conv2d.launches_by_kernel[name] += 1
+    cuda_build.launch(name, x.device,
+                      x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+                      None if bias is None else bias.data_ptr(), out.data_ptr(),
+                      B, H, W, Cin, Cout, int(radius))
     return out
 
 
@@ -180,11 +170,10 @@ def dcn_bwd_pom_fp32_out(x, offset, mask, weight, g, radius: int = 3):
     gw = torch.empty((3, 3, Cin, Cout), dtype=torch.float32, device=x.device)
     part = torch.empty((splits, 9 * Cin * Cout), dtype=torch.float32, device=x.device)
     name = _BWD_POM_KERNELS[x.dtype]
-    _launch(name, x.device,
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), g.data_ptr(), weight.data_ptr(),
-            go.data_ptr(), gm.data_ptr(), gw.data_ptr(), part.data_ptr(),
-            B, H, W, Cin, Cout, int(radius), splits)
-    dcn_bwd_pom.launches_by_kernel[name] += 1
+    cuda_build.launch(name, x.device,
+                      x.data_ptr(), offset.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                      weight.data_ptr(), go.data_ptr(), gm.data_ptr(), gw.data_ptr(),
+                      part.data_ptr(), B, H, W, Cin, Cout, int(radius), splits)
     return go, gm, gw
 
 
@@ -220,9 +209,8 @@ def dcn_bwd_x_fp32_out(x, offset, mask, weight, g, radius: int = 3):
     Cout = weight.shape[3]
     gx = torch.empty((B, H, W, Cin), dtype=torch.float32, device=x.device)
     name = _BWD_X_KERNELS[x.dtype]
-    _launch(name, x.device, offset.data_ptr(), mask.data_ptr(), g.data_ptr(),
-            weight.data_ptr(), gx.data_ptr(), B, H, W, Cin, Cout, int(radius))
-    dcn_bwd_x.launches_by_kernel[name] += 1
+    cuda_build.launch(name, x.device, offset.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                      weight.data_ptr(), gx.data_ptr(), B, H, W, Cin, Cout, int(radius))
     return gx
 
 
@@ -247,13 +235,15 @@ def dcn_bwd_x(
     return dcn_bwd_x_fp32_out(x, offset, mask, weight, g, radius).to(x.dtype)
 
 
+deform_conv2d.launches_by_kernel = cuda_build.LaunchCounts(_KERNELS.values())
+dcn_bwd_pom.launches_by_kernel = cuda_build.LaunchCounts(_BWD_POM_KERNELS.values())
+dcn_bwd_x.launches_by_kernel = cuda_build.LaunchCounts(_BWD_X_KERNELS.values())
+
+
 def reset_launch_counts() -> None:
-    deform_conv2d.launches_by_kernel = dict.fromkeys(_KERNELS.values(), 0)
-    dcn_bwd_pom.launches_by_kernel = dict.fromkeys(_BWD_POM_KERNELS.values(), 0)
-    dcn_bwd_x.launches_by_kernel = dict.fromkeys(_BWD_X_KERNELS.values(), 0)
-
-
-reset_launch_counts()
+    """Zero the launch counts of every kernel of the library, the DCN
+    kernels' and the upsampling's (:func:`cuda_build.reset_launch_counts`)."""
+    cuda_build.reset_launch_counts()
 
 
 class DeformConv2dFunction(torch.autograd.Function):

@@ -7,6 +7,10 @@ is loaded with :mod:`ctypes`. The sources have a plain C interface and
 include no PyTorch header, so the build takes seconds. It happens at first
 use and again whenever a source is newer than the library; nothing is built
 when the package is imported.
+
+Every launch goes through :func:`launch`, which counts it by C entry point;
+each wrapper shows its entry points' counts as ``launches_by_kernel``
+(:class:`LaunchCounts`), and :func:`reset_launch_counts` zeroes them all.
 """
 
 from __future__ import annotations
@@ -16,8 +20,12 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
+from collections.abc import Mapping
 from pathlib import Path
-from typing import List, Optional
+from typing import Iterable, Iterator, List, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dcd_tpu_torch"
@@ -28,6 +36,7 @@ NVCC_FLAGS = [
 ]
 
 _lib: Optional[ctypes.CDLL] = None
+_launches: Counter = Counter()
 
 
 def sources() -> List[Path]:
@@ -107,11 +116,54 @@ def _declare(lib: ctypes.CDLL) -> None:
         # offset, mask, g, weight, gx, B, H, W, Cin, Cout, radius, stream
         "dcn_bwd_x_f32": [ptr] * 5 + [i32] * 6 + [ptr],
         "dcn_bwd_x_bf16": [ptr] * 5 + [i32] * 6 + [ptr],
+        # x, weight, skip, out, B, H, W, C, f, stream
+        "upsample_add_f32": [ptr] * 4 + [i32] * 5 + [ptr],
+        "upsample_add_bf16": [ptr] * 4 + [i32] * 5 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = i32
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and PyTorch's current
+    stream on ``device``; raise if the launch was refused."""
+    fn = getattr(library(), name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+    _launches[name] += 1
+
+
+def reset_launch_counts() -> None:
+    """Zero the launch count of every entry point."""
+    _launches.clear()
+
+
+class LaunchCounts(Mapping):
+    """The launches of the entry points ``names`` since the last
+    :func:`reset_launch_counts`, by name: a read-only view of the counts
+    :func:`launch` keeps (``dict(view)`` takes a snapshot)."""
+
+    def __init__(self, names: Iterable[str]):
+        self._names = tuple(names)
+
+    def __getitem__(self, name: str) -> int:
+        if name not in self._names:
+            raise KeyError(name)
+        return _launches[name]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._names)
+
+    def __len__(self) -> int:
+        return len(self._names)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
 
 
 def library() -> ctypes.CDLL:

@@ -13,9 +13,10 @@ The port's spans (:func:`span`), one per call where each is opened:
   ``dcd.infer.h2d`` (the inputs' copies), ``dcd.model``
   (``KeypointDetector.forward``), ``dcd.postprocess``; inside the model
   ``dcd.trunk`` (DLA-34), ``dcd.decoder`` (DLAUp and IDAUp), inside it
-  ``dcd.upsample`` (each transposed conv) and ``dcd.dcn`` (each DCN: the
-  offset conv and the deformable conv; the deeper head's stems open it
-  inside ``dcd.heads``), then ``dcd.heads`` (``Predictor.forward``);
+  ``dcd.upsample`` (each upsampling with the add after it, one kernel) and
+  ``dcd.dcn`` (each DCN: the offset conv and the deformable conv; the
+  deeper head's stems open it inside ``dcd.heads``), then ``dcd.heads``
+  (``Predictor.forward``);
 * training: ``dcd.train_step``, inside it ``dcd.train.h2d``
   (``batch_to_device``), then per microbatch ``dcd.train.forward`` (the
   model's spans nest inside), ``dcd.train.loss`` and
